@@ -1,0 +1,145 @@
+"""PyTorch port, W8A8 ops: the plain versions of kernels C (int8 MLP
+sub-block) and D (int8 attention sub-block) against the JAX Pallas kernels
+(interpret mode on the CPU) on the same numpy inputs.
+
+At f32 the bar is 1e-5, as tests/test_quant.py holds the JAX kernels to
+their unfused composition: the int8 products are exact in both, and only
+the f32 reduction order of LN / softmax and the tanh/exp implementations
+differ.
+"""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from yolov8_vit_tpu.ops import attention as jatt
+from yolov8_vit_tpu.ops import quant as jq
+
+from yolov8_vit_tpu_torch.ops import attention, quant
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _weights(rng, fin, fout):
+    w = (rng.normal(size=(fin, fout)) * fin ** -0.5).astype(np.float32)
+    b = (rng.normal(size=(fout,)) * 0.1).astype(np.float32)
+    wq, s = jq.quantize_weight(jnp.asarray(w))
+    return w, np.asarray(wq), np.asarray(s), b
+
+
+def _ln(rng, d):
+    return ((1 + 0.1 * rng.normal(size=d)).astype(np.float32),
+            (0.1 * rng.normal(size=d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (3, 9, 32)])
+def test_quantize_weight_and_act_exact(shape):
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(shape[-1], 48)).astype(np.float32)
+    wq, s = quant.quantize_weight(_t(w))
+    jwq, js = jq.quantize_weight(jnp.asarray(w))
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    x = (rng.normal(size=shape) * np.logspace(-2, 2, shape[-1])) \
+        .astype(np.float32)
+    xq, sx = quant.quantize_act(_t(x))
+    jxq, jsx = jq.quantize_act(jnp.asarray(x))
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+
+
+def test_gelu_tanh_matches_jax():
+    x = np.linspace(-8, 8, 4001).astype(np.float32)
+    got = quant.gelu_tanh(_t(x)).numpy()
+    ref = np.asarray(jax.nn.gelu(jnp.asarray(x), approximate=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_prequantize_tree_matches_jax():
+    rng = np.random.default_rng(1)
+    tree = {"block0": {"attn": {"qkv": {"kernel": rng.normal(size=(8, 24))
+                                        .astype(np.float32),
+                                        "bias": np.zeros(24, np.float32)}},
+                       "mlp_fc1": {"kernel": rng.normal(size=(8, 32))
+                                   .astype(np.float32),
+                                   "bias": np.ones(32, np.float32)},
+                       "norm1": {"scale": np.ones(8, np.float32)}}}
+    got = quant.prequantize_tree(tree, quant.MLP_AND_ATTN_SUFFIXES)
+    ref = jq.prequantize_tree(tree, jq.MLP_AND_ATTN_SUFFIXES)
+    for path in (("attn", "qkv"), ("mlp_fc1",)):
+        g, r = got["block0"], ref["block0"]
+        for p in path:
+            g, r = g[p], r[p]
+        assert set(g) == set(r) == {"kernel_i8", "w_scale", "bias"}
+        for k in g:
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(r[k]))
+    assert "scale" in got["block0"]["norm1"]
+
+
+@pytest.mark.parametrize("m,d,hid,seed", [(48, 64, 256, 5), (300, 32, 128, 6)])
+def test_kernel_c_plain_matches_jax_kernel(m, d, hid, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    lns, lnb = _ln(rng, d)
+    _, w1, s1, b1 = _weights(rng, d, hid)
+    _, w2, s2, b2 = _weights(rng, hid, d)
+    args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
+    ref = np.asarray(jq.quant_mlp_ln_fused(*map(jnp.asarray, args)))
+    got = quant.quant_mlp_ln_fused(*map(_t, args))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_c_plain_keeps_lead_dims_and_bf16():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 17, 64)).astype(np.float32)
+    lns, lnb = _ln(rng, 64)
+    _, w1, s1, b1 = _weights(rng, 64, 256)
+    _, w2, s2, b2 = _weights(rng, 256, 64)
+    args = [_t(a) for a in (x, lns, lnb, w1, s1, b1, w2, s2, b2)]
+    got = quant.quant_mlp_ln_fused(*args)
+    assert got.shape == (2, 17, 64)
+    args[0] = args[0].to(torch.bfloat16)
+    got16 = quant.quant_mlp_ln_fused(*args)
+    assert got16.dtype == torch.bfloat16
+    # bf16 input rounding moves LN's output by ~2^-8: codes may shift by one
+    assert float((got16.float() - got).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("b,t,d,heads,t_real", [(3, 17, 64, 4, None),
+                                                (2, 24, 64, 4, 17),
+                                                (4, 5, 32, 2, None)])
+def test_kernel_d_plain_matches_jax_kernel(b, t, d, heads, t_real):
+    rng = np.random.default_rng(b * 100 + t)
+    x = rng.normal(size=(b, t, d)).astype(np.float32)
+    lns, lnb = _ln(rng, d)
+    _, wq, sq, bq = _weights(rng, d, 3 * d)
+    _, wp, sp, bp = _weights(rng, d, d)
+    args = (x, lns, lnb, wq, sq, bq, wp, sp, bp)
+    ref = np.asarray(jatt.fused_attention_block_i8(
+        *map(jnp.asarray, args), heads=heads, t_real=t_real))
+    got = attention.fused_attention_block_i8(*map(_t, args), heads=heads,
+                                             t_real=t_real)
+    assert got.shape == (b, t, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_d_plain_bf16_matches_jax_kernel():
+    """bf16 activations: the same rounding points (q*scale, P, head outputs
+    and the block output in bf16); outputs agree to a bf16 ulp or a single
+    int8 code flip."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 17, 64)).astype(np.float32)
+    lns, lnb = _ln(rng, 64)
+    _, wq, sq, bq = _weights(rng, 64, 192)
+    _, wp, sp, bp = _weights(rng, 64, 64)
+    rest = (lns, lnb, wq, sq, bq, wp, sp, bp)
+    ref = np.asarray(jatt.fused_attention_block_i8(
+        jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, rest), heads=4)
+        .astype(jnp.float32))
+    got = attention.fused_attention_block_i8(
+        _t(x).to(torch.bfloat16), *map(_t, rest), heads=4).float().numpy()
+    np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=0.05)

@@ -1,0 +1,190 @@
+"""Greedy NMS with static output shapes: kernels A and B.
+
+ 1. Stage 1, `efficient_nms_scan`: EfficientNMS_TRT semantics (IoU .65,
+    conf .25, top 100, class-aware, every (anchor, class) pair a candidate),
+    fixed-size (num_dets, boxes, scores, labels) outputs.  On the card this
+    is kernel A (csrc/nms.cu `nms_argmax_ml_kernel`), which replaces
+    yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.
+ 2. Stage 2, `area_sorted_nms`: conf > .35, priority = box area, class-
+    agnostic suppression at IoU .45, keep mask in row order.  On the card
+    this is kernel B (csrc/nms.cu `mask_scan_kernel`), which replaces
+    `_mask_scan_kernel`.
+
+Both loops pick the highest live entry each iteration (ties to the lowest
+flat index), so their trip count is the number of boxes kept.  The plain
+versions below run the same loop batched over images with torch ops; the
+wrappers use them only for CPU tensors.  The kernels' source notes give
+their bounds on the H100 and how the design meets them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yolov8_vit_tpu_torch import _build
+from yolov8_vit_tpu_torch.ops.boxes import box_area
+
+_KILLED = -1e9
+_BIG = 2 ** 30
+
+
+def _iou_vs(boxes: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """IoU of every box (B, N, 4) against one selected box per image
+    (B, 4), in the kernels' operation order."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    cx1, cy1, cx2, cy2 = (v[:, None] for v in sel.unbind(-1))
+    area = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    c_area = (cx2 - cx1).clamp_min(0.0) * (cy2 - cy1).clamp_min(0.0)
+    iw = (torch.minimum(x2, cx2) - torch.maximum(x1, cx1)).clamp_min(0.0)
+    ih = (torch.minimum(y2, cy2) - torch.maximum(y1, cy1)).clamp_min(0.0)
+    inter = iw * ih
+    return inter / (area + c_area - inter).clamp_min(1e-9)
+
+
+def nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
+                        max_output):
+    """Plain version of kernel A over a batch: boxes (B, N, 4), scores
+    (B, N, C) f32 -> num_dets (B,) i32, boxes (B, M, 4), scores (B, M),
+    labels (B, M) i32 (zero / -1 padded)."""
+    b, n, c = scores.shape
+    dev = scores.device
+    scs = scores.transpose(1, 2).reshape(b, c * n).clone()   # class-major
+    flat = torch.arange(c * n, device=dev)
+    cols = torch.arange(n, device=dev)
+    rows = torch.arange(b, device=dev)
+    num = torch.zeros(b, dtype=torch.int32, device=dev)
+    ob = torch.zeros(b, max_output, 4, dtype=torch.float32, device=dev)
+    os_ = torch.zeros(b, max_output, dtype=torch.float32, device=dev)
+    ol = torch.full((b, max_output), -1, dtype=torch.int32, device=dev)
+    for it in range(max_output):
+        m = scs.amax(dim=1)
+        active = m > score_threshold
+        if not bool(active.any()):
+            break
+        i_sel = torch.where(scs == m[:, None], flat, _BIG).amin(dim=1)
+        k, a = i_sel // n, i_sel % n
+        sel = boxes[rows, a]                                   # (B, 4)
+        kill = (_iou_vs(boxes, sel) > iou_threshold) | (cols == a[:, None])
+        kill &= active[:, None]
+        plane = scs.view(b, c, n)[rows, k]                     # (B, N)
+        scs.view(b, c, n)[rows, k] = torch.where(kill, -1.0, plane)
+        ob[:, it] = torch.where(active[:, None], sel, ob[:, it])
+        os_[:, it] = torch.where(active, m, os_[:, it])
+        ol[:, it] = torch.where(active, k.to(torch.int32), ol[:, it])
+        num += active.to(torch.int32)
+    return num, ob, os_, ol
+
+
+def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
+                       iou_threshold: float = 0.65,
+                       score_threshold: float = 0.25,
+                       max_output: int = 100):
+    """EfficientNMS with full-candidate greedy semantics.
+
+    boxes (N, 4) or (B, N, 4) xyxy f32; scores (N, C) or (B, N, C) f32.
+    Returns (num_dets, boxes (.., max_output, 4), scores (.., max_output),
+    labels (.., max_output) int32, -1 padded), in pick (score-descending)
+    order.  CUDA tensors launch kernel A; CPU tensors run the plain
+    version.  (The JAX package's multi_label=False form needs
+    `_nms_argmax_kernel`, not yet ported: ROADMAP.md.)"""
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+    boxes = boxes.to(torch.float32).contiguous()
+    scores = scores.to(torch.float32).contiguous()
+    b, n, c = scores.shape
+    if boxes.shape != (b, n, 4):
+        raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
+                         f"{tuple(scores.shape)}")
+    if _build.on_cpu(boxes, scores):
+        out = nms_argmax_ml_plain(boxes, scores, iou_threshold,
+                                  score_threshold, max_output)
+    else:
+        if (n * c + 66) * 4 > 232448:
+            raise ValueError(f"{n} anchors x {c} classes exceed the "
+                             f"kernel's shared memory")
+        dev = boxes.device
+        num = torch.empty(b, dtype=torch.int32, device=dev)
+        ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
+        os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
+        ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
+        so = _build.lib("nms")
+        fn = so.launch_nms_argmax_ml
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+        rc = fn(boxes.data_ptr(), scores.data_ptr(), b, n, c,
+                iou_threshold, score_threshold, max_output, num.data_ptr(),
+                ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
+                _build.stream_ptr())
+        efficient_nms_scan.launches += 1
+        _build.check(so, rc, "nms_argmax_ml_kernel")
+        out = (num, ob, os_, ol)
+    if single:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+efficient_nms_scan.launches = 0
+
+
+def mask_scan_plain(boxes: torch.Tensor, pri: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """Plain version of kernel B: boxes (B, T, 4), priority (B, T) f32
+    (invalid rows at -1e9) -> keep (B, T) bool."""
+    b, t = pri.shape
+    dev = pri.device
+    pr = pri.clone()
+    keep = torch.zeros(b, t, dtype=torch.bool, device=dev)
+    idx = torch.arange(t, device=dev)
+    rows = torch.arange(b, device=dev)
+    for _ in range(t):
+        m = pr.amax(dim=1)
+        active = m > _KILLED / 2
+        if not bool(active.any()):
+            break
+        i_sel = torch.where(pr == m[:, None], idx, _BIG).amin(dim=1)
+        kill = ((_iou_vs(boxes, boxes[rows, i_sel]) > iou_threshold)
+                | (idx == i_sel[:, None])) & active[:, None]
+        pr = torch.where(kill, _KILLED, pr)
+        keep[rows, i_sel] |= active
+    return keep
+
+
+def area_sorted_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, *,
+                    iou_threshold: float = 0.45,
+                    score_threshold: float = 0.35) -> torch.Tensor:
+    """Second-stage NMS: keep mask over the input rows of (T, 4) or
+    (B, T, 4) boxes.  Rows that are valid with score > score_threshold
+    compete by area, descending, ties to the lowest row; suppression is
+    class-agnostic at IoU > iou_threshold.
+    CUDA tensors launch kernel B; CPU tensors run the plain version."""
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    valid = valid & (scores > score_threshold)
+    pri = torch.where(valid, box_area(boxes).to(torch.float32),
+                      _KILLED).contiguous()
+    boxes = boxes.to(torch.float32).contiguous()
+    b, t = pri.shape
+    if _build.on_cpu(boxes, pri):
+        keep = mask_scan_plain(boxes, pri, iou_threshold)
+    else:
+        keep = torch.empty(b, t, dtype=torch.bool, device=boxes.device)
+        so = _build.lib("nms")
+        fn = so.launch_mask_scan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(boxes.data_ptr(), pri.data_ptr(), b, t, iou_threshold,
+                keep.data_ptr(), _build.stream_ptr())
+        area_sorted_nms.launches += 1
+        _build.check(so, rc, "mask_scan_kernel")
+    return keep[0] if single else keep
+
+
+area_sorted_nms.launches = 0
