@@ -5,30 +5,56 @@
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from yolov8_vit_tpu_torch/csrc (nvcc, one
+  2. build the CUDA kernels A-F from yolov8_vit_tpu_torch/csrc (nvcc, one
      process per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes: A and B (NMS) bit-exact on dense inputs with
-     score ties and IoU-exactly-at-threshold pairs; C and D (W8A8 blocks)
-     within the tolerance stated at KERNEL_TOL; time each (CUDA events)
-     beside its bound;
-  4. a small-input check: the whole pipeline on the card against the same
-     pipeline on the CPU (plain versions), f32, integer outputs equal;
-  5. the full-width slice: YOLOv8-s at 640x640 + ViT-B/16 w8a, bf16,
+     main paths' shapes: A and B (NMS) bit-exact on dense inputs with
+     score ties and IoU-exactly-at-threshold pairs; C and D (W8A8 blocks,
+     ViT-B/16) and D at ViT-B/8's 785 tokens within KERNEL_TOL; E (float
+     attention block) and F (flash attention) at 785 tokens, bf16 at 64
+     crops within FLOAT_BF16_TOL and f32 at 16 crops within F32_TOL; time
+     each (CUDA events) beside its bound, its plain version and, for F,
+     PyTorch's scaled_dot_product_attention;
+  4. small-input checks: the whole pipeline on the card against the same
+     pipeline on the CPU (plain versions), f32, integer outputs equal, with
+     a w8a ViT (kernels C, D) and a float one (kernel E);
+  5. the ViT-B/16 w8a slice: YOLOv8-s at 640x640 + ViT-B/16 w8a, bf16,
      classify budget 2, batch 32, default thresholds, weights made from a
      seed (f32 init -> prequantize -> detect head ridge-fitted to planted
      covers, utils/densify.py), driven through
      BatchRunner.run_device_batches on cover scenes (~1.5 covers/frame,
      timed) and one crowded batch (~4.4/frame) that overflows the budget;
-     every kernel's launch count must be > 0, outputs finite, detections
-     found and the overflow ladder taken.
-The line before the last holds the kernels' JSON; the last line is the
-device JSON.  Nothing of JAX is imported.
+  6. the float ViT-B/8 slice: `make_runner(classify_budget=2)` with no
+     engine dirs (YOLOv8-s + the default ViTSpec(): ViT-B/8, 785 tokens,
+     float weights, fused attention; bf16, batch 32), seed-0 weights with
+     the fitted head, driven as phase 5;
+  7. make_runner on engine dirs written by the port's `save_engine`:
+     phase 6's detector with a ViT-B/8 classify engine of each int8 mode
+     (w8a: kernels C and D at 785 tokens; w8: C and E; dynamic, stored
+     bf16: E and per-call int8 dense layers), one batch each;
+  8. the `Engine` entry point on engine dirs written by the port's
+     `save_engine`: a ViT-B/8 classify engine with attn_impl="pallas"
+     (kernel F) on NCHW images in [-1, 1], held against the same model
+     with F's plain version, and a two_stage engine of phase 5's weights
+     on NCHW frames, equal to phase 5's pipeline;
+  9. the bf16 detector's convolutions on the card: every conv of phase
+     5's YOLOv8-s forward (batch 32, TF32 over bf16-valued operands) held
+     against the same conv in f64 (CONV_TOL), and the card's stem against
+     the same weights and frames on the CPU (STEM_DIFF_SHARE);
+  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps.
+Each path of phases 5-8 is driven with every launch count set to 0 just
+before it and read just after: its kernels must have launched, and the
+kernels of the other paths must not have.  Outputs must be finite,
+detections found and the overflow ladder taken.  The line before the last
+holds the kernels' JSON; the last line is the device JSON.  Nothing of JAX
+is imported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +63,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # full JSON report and profiler table
 OUT_DIR = os.environ.get("CHIP_SMOKE_OUT", os.path.join(HERE, "chip_smoke_out"))
 BATCHES = 8                                    # timed frame batches
+# engine dirs the run writes (inside the ignored chip_smoke_out/, deleted
+# after each phase)
+ENGINE_DIR = os.path.join(HERE, "chip_smoke_out", "engines")
 
 # H100 SXM datasheet peaks (dense)
 PEAK_BYTES_S = 3.35e12
@@ -50,6 +79,44 @@ PEAK_F32_FLOPS = 67e12
 # a .5 quantization boundary can take the neighbouring int8 code (one code
 # of one product term).  Allowed: |kernel - plain| <= atol + rtol * |plain|.
 KERNEL_TOL = {"atol": 0.05, "rtol": 2.0 ** -7}
+# E and F with bf16 activations round at the plain version's points, but
+# their f32 sums run in another order, so a value at a rounding midpoint
+# can go to its other bf16 neighbour: an output by one ulp (2^-7 of it),
+# and one element of P (ulp 2^-8 in [0.5, 1)) moves a whole row of the
+# head's output by 2^-8 |v|, its projection by 2^-8 |v . W| (|v . W| <= 2
+# on these inputs): atol 2^-7.  Such flips touch few elements, so the mean
+# error stays below 2^-9 of the mean |output|, and the kernel is as close
+# to the same function in f32 as the plain version is (mean error at most
+# 1.1x the plain version's); a systematic fault (a key tile left unmasked,
+# a wrong scale) moves every element and fails both.
+FLOAT_BF16_TOL = {"atol": 2.0 ** -7, "rtol": 2.0 ** -7,
+                  "mean_rel": 2.0 ** -9, "f32_ratio": 1.1}
+# E and F with f32 activations: the same float products, summed in another
+# order (GEMM tiles, two-pass softmax sums) than cuBLAS and torch's
+# reductions, on unit-size outputs: a few f32 ulps of the 768-term sums
+F32_TOL = {"atol": 1e-4, "rtol": 1e-4}
+# a detector conv under TF32 over bf16-valued operands against the same
+# conv in f64, as a share of sum |w x|: exact products summed in f32 stay
+# near 2^-24 of it; operands rounded to TF32's 10-bit mantissa after a
+# transform (Winograd, FFT) would reach 2^-11 / sqrt(fan-in), >= 2^-17
+CONV_TOL = 2.0 ** -17
+# the card's bf16 stem (b0, b1) against the CPU's: f32 sums in another
+# order and another exp in SiLU move the f32 value by a few f32 ulps, so an
+# output lands on the other bf16 neighbour where that value sits within a
+# few 2^-24 of a midpoint (a few 2^-16 of the outputs, more in b1, which
+# inherits b0's); operands rounded to TF32 would move far more
+STEM_DIFF_SHARE = 1e-3
+
+# the wrapper of each kernel row of the kernels JSON, and the path whose
+# launches it reports
+ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
+               "mask_scan": ("area_sorted_nms", "vit_b16_w8a"),
+               "quant_mlp_ln": ("quant_mlp_ln_fused", "vit_b16_w8a"),
+               "attn_block_i8": ("fused_attention_block_i8", "vit_b16_w8a"),
+               "attn_block_i8_t785": ("fused_attention_block_i8",
+                                      "vit_b8_w8a"),
+               "attn_block": ("fused_attention_block", "vit_b8_float"),
+               "flash_attention": ("flash_attention", "engine_classify")}
 
 
 def _smi() -> str:
@@ -76,6 +143,54 @@ def _time_ms(fn, reps: int) -> float:
 def _bound_ms(nbytes: float, op_ms: float) -> tuple[float, str]:
     b_ms = nbytes / PEAK_BYTES_S * 1e3
     return (b_ms, "bytes") if b_ms >= op_ms else (op_ms, "operations")
+
+
+def _close(torch, name, got, ref, tol, f32_ref=None, stats=None) -> float:
+    """max |got - ref|, and into `stats` (a dict) the mean error over the
+    mean |ref| and the error ratio against f32; raises where |got - ref| > atol + rtol |ref|, where
+    got is not finite, where mean |got - ref| > mean_rel mean |ref| (if tol
+    has mean_rel), or where mean |got - f32_ref| > f32_ratio mean |ref -
+    f32_ref| (if f32_ref, the same function in f32, is given)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    lim = tol["atol"] + tol["rtol"] * ref.abs()
+    mean_rel = float(err.mean() / ref.abs().mean())
+    ratio = 0.0
+    if f32_ref is not None:
+        ratio = float((got - f32_ref).abs().mean()
+                      / (ref - f32_ref).abs().mean())
+    if not bool(torch.isfinite(got).all()) or bool((err > lim).any()) \
+            or mean_rel > tol.get("mean_rel", float("inf")) \
+            or ratio > tol.get("f32_ratio", float("inf")):
+        raise AssertionError(f"kernel {name} != plain: max err "
+                             f"{float(err.max())}, {int((err > lim).sum())} "
+                             f"beyond {tol}, mean err / mean |plain| "
+                             f"{mean_rel}, error against f32 / plain's "
+                             f"{ratio}")
+    if stats is not None:
+        stats[name] = {"mean_rel": mean_rel, "f32_ratio": ratio}
+    return float(err.max())
+
+
+def _path_launches(ops, path: str, must, must_not) -> dict:
+    """The launch counts of one path, read just after it ran (the caller
+    reset them just before): each kernel of `must` launched, none of
+    `must_not`."""
+    counts = ops.launch_counts()
+    for name in must:
+        if counts[name] == 0:
+            raise AssertionError(f"{path}: kernel wrapper {name} never "
+                                 f"launched")
+    for name in must_not:
+        if counts[name] != 0:
+            raise AssertionError(f"{path}: kernel wrapper {name} launched "
+                                 f"{counts[name]} times off its path")
+    return counts
+
+
+A_B = ("efficient_nms_scan", "area_sorted_nms")
+C_D = ("quant_mlp_ln_fused", "fused_attention_block_i8")
+E_F = ("fused_attention_block", "flash_attention")
 
 
 def _nms_inputs(torch, b, n, c, seed):
@@ -168,22 +283,13 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
         return ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
                 (0.1 * torch.randn(d, generator=g)).to(dev))
 
-    def close(name, got, ref):
-        err = (got.float() - ref.float()).abs()
-        lim = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * ref.float().abs()
-        if not bool(torch.isfinite(got.float()).all()) or bool((err > lim)
-                                                              .any()):
-            raise AssertionError(f"kernel {name} != plain: max err "
-                                 f"{float(err.max())}, {int((err > lim).sum())}"
-                                 f" beyond {KERNEL_TOL}")
-        return float(err.max())
-
     x = torch.randn(mlp_rows, d, generator=g).to(dev, torch.bfloat16)
     lns, lnb = ln()
     w1, s1, b1 = wq(d, hid)
     w2, s2, b2 = wq(hid, d)
     args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
-    err = close("C", ops.quant_mlp_ln_fused(*args), quant_mlp_ln_plain(*args))
+    err = _close(torch, "C", ops.quant_mlp_ln_fused(*args),
+                 quant_mlp_ln_plain(*args), KERNEL_TOL)
     k_ms = _time_ms(lambda: ops.quant_mlp_ln_fused(*args), 20)
     p_ms = _time_ms(lambda: quant_mlp_ln_plain(*args), 3)
     ops_c = 2 * 2 * mlp_rows * d * hid
@@ -200,8 +306,8 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
     wqkv, sq, bq = wq(d, 3 * d)
     wp, sp, bp = wq(d, d)
     args = (xa, lns, lnb, wqkv, sq, bq, wp, sp, bp)
-    err = close("D", ops.fused_attention_block_i8(*args, heads=12),
-                attn_block_i8_plain(*args, heads=12))
+    err = _close(torch, "D", ops.fused_attention_block_i8(*args, heads=12),
+                 attn_block_i8_plain(*args, heads=12), KERNEL_TOL)
     k_ms = _time_ms(lambda: ops.fused_attention_block_i8(*args, heads=12), 20)
     p_ms = _time_ms(lambda: attn_block_i8_plain(*args, heads=12), 3)
     m = crops * t
@@ -218,9 +324,132 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
     return rows
 
 
-def small_input_check(torch) -> dict:
+def check_attention_b8(torch, ops, crops: int, f32_crops: int):
+    """D, E and F at ViT-B/8's 785 tokens and width 768: bf16 at `crops`
+    (the main paths' 64 crops: batch 32 x budget 2) held within
+    FLOAT_BF16_TOL (D within KERNEL_TOL: its int8 codes can flip at a .5
+    boundary in any dtype) and timed; f32 at `f32_crops` held within
+    F32_TOL (D within KERNEL_TOL).  Returns the kernel rows, the f32
+    errors and the bf16 statistics of E and F."""
+    from yolov8_vit_tpu_torch.ops.attention import (
+        attn_block_i8_plain, flash_attention_plain,
+        fused_attention_block_plain)
+    from yolov8_vit_tpu_torch.ops.quant import quantize_weight
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    d, t, heads = 768, 785, 12
+    hd = d // heads
+    rows, f32_err, bf16_stats = [], {}, {}
+
+    def ln():
+        return ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+                (0.1 * torch.randn(d, generator=g)).to(dev))
+
+    def wq(fout):
+        q, s_ = quantize_weight(torch.randn(d, fout, generator=g) * d ** -0.5)
+        return q.to(dev), s_.to(dev), (0.02 * torch.randn(fout, generator=g)
+                                       ).to(dev)
+
+    def wf(fout, dt):
+        return ((torch.randn(d, fout, generator=g) * d ** -0.5).to(dev, dt),
+                (0.02 * torch.randn(fout, generator=g)).to(dev))
+
+    def x_of(n, dt, scale=1.0):
+        return (scale * torch.randn(n, t, d, generator=g)).to(dev, dt)
+
+    sdpa_ops = lambda n: 4 * n * heads * t * t * hd       # noqa: E731
+    m = crops * t
+    bf16 = torch.bfloat16
+
+    # ---- D at 785 tokens ------------------------------------------------
+    w_d = (*ln(), *wq(3 * d), *wq(d))
+    for n, dt in ((crops, bf16), (f32_crops, torch.float32)):
+        args = (x_of(n, dt), *w_d)
+        err = _close(torch, f"D@785 {dt}",
+                     ops.fused_attention_block_i8(*args, heads=heads),
+                     attn_block_i8_plain(*args, heads=heads), KERNEL_TOL)
+        if dt == torch.float32:
+            f32_err["attn_block_i8_t785"] = err
+            continue
+        k_ms = _time_ms(lambda: ops.fused_attention_block_i8(
+            *args, heads=heads), 10)
+        p_ms = _time_ms(lambda: attn_block_i8_plain(*args, heads=heads), 2)
+        op_ms = (2 * m * d * 4 * d / PEAK_INT8_OPS
+                 + sdpa_ops(crops) / PEAK_BF16_FLOPS) * 1e3
+        bound, by = _bound_ms(2 * m * d * 2 + 4 * d * d + 4 * 8 * d, op_ms)
+        rows.append(dict(name="attn_block_i8_t785", route="cuda",
+                         source="yolov8_vit_tpu_torch/csrc/attention.cu",
+                         replaces="yolov8_vit_tpu/ops/attention.py:162",
+                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+
+    # ---- E --------------------------------------------------------------
+    lns, lnb = ln()
+    for n, dt in ((crops, bf16), (f32_crops, torch.float32)):
+        (wqkv, bq), (wp, bp) = wf(3 * d, dt), wf(d, dt)
+        # a residual stream of the size of the attention's output (~0.06),
+        # so that a fault in the SDPA shows in the sum
+        args = (x_of(n, dt, 0.05), lns, lnb, wqkv, bq, wp, bp)
+        tol, f32_ref = F32_TOL, None
+        if dt == bf16:
+            tol = FLOAT_BF16_TOL
+            f32_ref = fused_attention_block_plain(
+                *(a.float() for a in args), heads=heads)
+        err = _close(torch, f"E {dt}",
+                     ops.fused_attention_block(*args, heads=heads),
+                     fused_attention_block_plain(*args, heads=heads), tol,
+                     f32_ref, bf16_stats)
+        del f32_ref
+        if dt == torch.float32:
+            f32_err["attn_block"] = err
+            continue
+        k_ms = _time_ms(lambda: ops.fused_attention_block(*args, heads=heads),
+                        10)
+        p_ms = _time_ms(lambda: fused_attention_block_plain(
+            *args, heads=heads), 2)
+        op_ms = (8 * m * d * d + sdpa_ops(crops)) / PEAK_BF16_FLOPS * 1e3
+        bound, by = _bound_ms(2 * m * d * 2 + 2 * 4 * d * d + 4 * 6 * d,
+                              op_ms)
+        rows.append(dict(name="attn_block", route="cuda",
+                         source="yolov8_vit_tpu_torch/csrc/attention.cu",
+                         replaces="yolov8_vit_tpu/ops/attention.py:135",
+                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+
+    # ---- F --------------------------------------------------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for n, dt in ((crops, bf16), (f32_crops, torch.float32)):
+        q, k, v = (torch.randn(n, t, heads, hd, generator=g).to(dev, dt)
+                   for _ in range(3))
+        tol, f32_ref = F32_TOL, None
+        if dt == bf16:
+            tol = FLOAT_BF16_TOL
+            f32_ref = flash_attention_plain(q.float(), k.float(), v.float())
+        err = _close(torch, f"F {dt}", ops.flash_attention(q, k, v),
+                     flash_attention_plain(q, k, v), tol, f32_ref,
+                     bf16_stats)
+        del f32_ref
+        if dt == torch.float32:
+            f32_err["flash_attention"] = err
+            continue
+        k_ms = _time_ms(lambda: ops.flash_attention(q, k, v), 10)
+        p_ms = _time_ms(lambda: flash_attention_plain(q, k, v), 2)
+        qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+        lib_ms = _time_ms(lambda: sdpa(qh, kh, vh), 10)
+        bound, by = _bound_ms(4 * n * t * heads * hd * 2,
+                              sdpa_ops(n) / PEAK_BF16_FLOPS * 1e3)
+        rows.append(dict(name="flash_attention", route="cuda",
+                         source="yolov8_vit_tpu_torch/csrc/attention.cu",
+                         replaces="yolov8_vit_tpu/ops/attention.py:32",
+                         max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms))
+    return rows, f32_err, bf16_stats
+
+
+def small_input_check(torch, quant: str) -> dict:
     """The tiny test configuration (dense thresholds, densified head), f32:
-    the card's pipeline against the CPU's on the same weights and frames."""
+    the card's pipeline against the CPU's on the same weights and frames,
+    with a ViT of `quant` ("w8a": kernels C and D; "none": kernel E)."""
     import numpy as np
     from yolov8_vit_tpu_torch.config import DetectConfig
     from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
@@ -231,7 +460,7 @@ def small_input_check(torch) -> dict:
                        nms_conf=1e-6, conf_second=1e-6, nms_iou=0.995,
                        custom_nms_iou=0.999)
     spec = ViTSpec(img_size=32, patch=8, dim=64, depth=2, heads=4,
-                   backbone_classes=40, quant="w8a", attn_impl="fused")
+                   backbone_classes=40, quant=quant, attn_impl="fused")
     outs = []
     tree = None
     imgs = np.random.default_rng(0).integers(0, 256, (4, 96, 128, 3),
@@ -256,31 +485,29 @@ def small_input_check(torch) -> dict:
     return {"valid": int(cpu["final_valid"].sum()), **errs}
 
 
-def full_slice(torch, ops, batches: int) -> dict:
-    import numpy as np
-    from yolov8_vit_tpu_torch.config import DetectConfig
-    from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
-    from yolov8_vit_tpu_torch.models.vit import ViTSpec
-    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+BATCH, BUDGET = 32, 2
+
+
+def _fit_head(pipe, tree: dict, rng) -> dict:
+    """Content-responsive head at production density (~1.5 covers/frame):
+    ridge-fit on 16 fit scenes; timed scenes are fresh draws."""
     from yolov8_vit_tpu_torch.utils.densify import (fit_detect_head,
                                                     make_cover_scenes)
-    from yolov8_vit_tpu_torch.weights import init_tree, load_pipeline_tree
-    batch, budget = 32, 2
-    spec = ViTSpec(patch=16, quant="w8a", attn_impl="fused")
-    pipe = TwoStagePipeline(det_cfg=DetectConfig(variant="s"), vit_spec=spec,
-                            classify_budget=budget, dtype=torch.bfloat16,
-                            device="cuda")
-    rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
-    tree = init_tree(pipe, 0)
-    load_pipeline_tree(pipe, tree)
-    # content-responsive head at production density (~1.5 covers/frame):
-    # ridge-fit on 16 fit scenes; timed scenes are fresh draws
+    from yolov8_vit_tpu_torch.weights import load_pipeline_tree
     fit_imgs, fit_covers = make_cover_scenes(rng, 16, (640, 640), lam=1.5)
-    load_pipeline_tree(pipe, fit_detect_head(tree, pipe, fit_imgs,
-                                             fit_covers))
-    init_s = time.perf_counter() - t0
-    runner = BatchRunner(pipe, max_batch=batch)
+    tree = fit_detect_head(tree, pipe, fit_imgs, fit_covers)
+    load_pipeline_tree(pipe, tree)
+    return tree
+
+
+def drive(torch, ops, runner, rng, batches: int, path: str, must,
+          must_not) -> dict:
+    """Run `batches` cover-scene batches (timed) and one crowded batch
+    through runner.run_device_batches with the launch counts reset just
+    before and read just after; check the outputs."""
+    import numpy as np
+    from yolov8_vit_tpu_torch.utils.densify import make_cover_scenes
+    batch = runner.max_batch
     pools, true_covers = [], 0
     for _ in range(batches):
         imgs, covers = make_cover_scenes(rng, batch, (640, 640), lam=1.5)
@@ -291,6 +518,7 @@ def full_slice(torch, ops, batches: int) -> dict:
     crowded = torch.from_numpy(crowded).to("cuda")
     runner.run_device_batches(pools[:1] + [crowded])   # warm: cuDNN plans
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()
     prof: dict = {}
@@ -300,30 +528,27 @@ def full_slice(torch, ops, batches: int) -> dict:
     dt = time.perf_counter() - t0
     dense_prof: dict = {}
     recs += runner.run_device_batches([crowded], profile=dense_prof)
-    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    launches = _path_launches(ops, path, must, must_not)
 
     step_ms = _time_ms(lambda: runner._fn(pools[0]), 5)
     flat = [r for rs in recs for r in rs]
     for r in flat:
         for k in ("boxes", "det_scores", "cls_scores"):
             if not np.isfinite(r[k]).all():
-                raise AssertionError(f"non-finite {k}")
+                raise AssertionError(f"{path}: non-finite {k}")
         v = r["final_valid"]
         if (r["cls_labels"][v] < 0).any():
-            raise AssertionError("a kept detection left unclassified")
+            raise AssertionError(f"{path}: a kept detection left "
+                                 f"unclassified")
     prod = flat[:batch * batches]
-    num_dets = sum(r["num_dets"] for r in flat)
-    if num_dets == 0:
-        raise AssertionError("no detections in the full-width slice")
+    if sum(r["num_dets"] for r in flat) == 0:
+        raise AssertionError(f"{path}: no detections")
     if dense_prof.get("overflow_dets", 0) == 0:
-        raise AssertionError("the overflow ladder never ran")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel wrapper {name} never launched on "
-                                 f"the main path")
+        raise AssertionError(f"{path}: the overflow ladder never ran")
     return {"launches": launches, "img_s": batch * batches / dt,
             "wall_ms_per_batch": dt / batches * 1e3,
-            "fused_step_ms": step_ms, "init_fit_s": init_s,
+            "fused_step_ms": step_ms,
             "true_covers_per_frame": true_covers / len(prod),
             "kept_per_frame": float(np.mean([r["final_valid"].sum()
                                              for r in prod])),
@@ -334,13 +559,294 @@ def full_slice(torch, ops, batches: int) -> dict:
             "crowded_overflow_dets": dense_prof["overflow_dets"],
             "crowded_overflow_ms": dense_prof["overflow_ms"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "runner": runner, "frames": pools[0]}
+            "frames": pools[0]}
 
 
-def profile_step(torch, runner, frames, out_dir: str) -> dict:
+def b16_w8a_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
+    """Phase 5.  Returns (report, runner, fitted tree)."""
+    import numpy as np
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
+    from yolov8_vit_tpu_torch.models.vit import ViTSpec
+    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+    from yolov8_vit_tpu_torch.weights import init_tree, load_pipeline_tree
+    spec = ViTSpec(patch=16, quant="w8a", attn_impl="fused")
+    pipe = TwoStagePipeline(det_cfg=DetectConfig(variant="s"), vit_spec=spec,
+                            classify_budget=BUDGET, dtype=torch.bfloat16,
+                            device="cuda")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    tree = init_tree(pipe, 0)
+    load_pipeline_tree(pipe, tree)
+    tree = _fit_head(pipe, tree, rng)
+    init_s = time.perf_counter() - t0
+    runner = BatchRunner(pipe, max_batch=BATCH)
+    out = drive(torch, ops, runner, rng, batches, "vit_b16_w8a",
+                must=A_B + C_D, must_not=E_F)
+    return dict(out, init_fit_s=init_s), runner, tree
+
+
+def b8_float_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
+    """Phase 6: the serving default, make_runner() without engine dirs."""
+    import numpy as np
+    from yolov8_vit_tpu_torch.models.vit import ViTSpec
+    from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
+    from yolov8_vit_tpu_torch.weights import init_tree
+    t0 = time.perf_counter()
+    runner = make_runner(classify_budget=BUDGET, device="cuda")
+    runner.max_batch = BATCH
+    pipe = runner.pipeline
+    want = dataclasses.replace(ViTSpec(), attn_impl="fused")
+    if pipe.vit_spec != want or pipe.dtype != torch.bfloat16:
+        raise AssertionError(f"make_runner() serves {pipe.vit_spec} in "
+                             f"{pipe.dtype}, not {want} in bf16")
+    # the tree make_runner drew (rng_seed 0), with the fitted head
+    tree = _fit_head(pipe, init_tree(pipe, 0), np.random.default_rng(1))
+    init_s = time.perf_counter() - t0
+    out = drive(torch, ops, runner, np.random.default_rng(2), batches,
+                "vit_b8_float", must=A_B + ("fused_attention_block",),
+                must_not=C_D + ("flash_attention",))
+    return dict(out, init_fit_s=init_s, tokens=pipe.vit_spec.tokens), \
+        runner, tree
+
+
+def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
+                   frames) -> dict:
+    """Phase 7: make_runner on engine dirs the port's save_engine wrote:
+    phase 6's fitted detector as a detect engine, and phase 6's ViT-B/8
+    weights as a classify engine of each int8 mode (w8a and w8
+    pre-quantized, dynamic stored bf16), one batch each."""
+    import numpy as np
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.models.vit import ViTSpec
+    from yolov8_vit_tpu_torch.ops.quant import (MLP_AND_ATTN_SUFFIXES,
+                                                MLP_SUFFIXES,
+                                                prequantize_tree)
+    from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
+    from yolov8_vit_tpu_torch.weights import save_engine
+    modes = {  # quant: (tree, kernels that must launch, kernels that must not)
+        "w8a": (prequantize_tree(vit_tree, MLP_AND_ATTN_SUFFIXES),
+                A_B + C_D, E_F),
+        "w8": (prequantize_tree(vit_tree, MLP_SUFFIXES),
+               A_B + ("quant_mlp_ln_fused", "fused_attention_block"),
+               ("fused_attention_block_i8", "flash_attention")),
+        "dynamic": (vit_tree, A_B + ("fused_attention_block",),
+                    C_D + ("flash_attention",)),
+    }
+    root = os.path.join(ENGINE_DIR, "vit_b8")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        det = save_engine(os.path.join(root, "detect"), "detect", det_tree,
+                          {"detect_cfg": dataclasses.asdict(DetectConfig())})
+        for quant, (tree, must, must_not) in modes.items():
+            path = f"vit_b8_{quant}"
+            cls = save_engine(
+                os.path.join(root, quant), "classify", {"params": tree},
+                {"vit_spec": dataclasses.asdict(ViTSpec(
+                    quant=quant,
+                    attn_impl="fused" if quant == "w8a" else "xla")),
+                 "num_classes": 5},
+                param_dtype="bfloat16" if quant == "dynamic" else None)
+            runner = make_runner(det, cls, classify_budget=BUDGET,
+                                 device="cuda")
+            runner.max_batch = BATCH
+            vs = runner.pipeline.vit_spec
+            if (vs.patch, vs.quant, vs.attn_impl) != (8, quant, "fused"):
+                raise AssertionError(f"{path}: make_runner serves {vs}")
+            runner.run_device_batches([frames])              # warm
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            recs = runner.run_device_batches([frames])[0]
+            torch.cuda.synchronize()
+            launches = _path_launches(ops, path, must, must_not)
+            for r in recs:
+                for k in ("boxes", "det_scores", "cls_scores"):
+                    if not np.isfinite(r[k]).all():
+                        raise AssertionError(f"{path}: non-finite {k}")
+            kept = sum(int(r["final_valid"].sum()) for r in recs)
+            if kept == 0:
+                raise AssertionError(f"{path}: no detection classified")
+            out[path] = {"launches": launches, "kept": kept,
+                         "fused_step_ms": _time_ms(
+                             lambda: runner._fn(frames), 3)}
+            del runner
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def engine_phase(torch, ops, vit_b8_tree: dict, b16_runner, b16_tree: dict,
+                 frames) -> dict:
+    """Phase 8: engine dirs written by the port's save_engine, loaded and
+    run by the port's Engine."""
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.models import vit as vit_mod
+    from yolov8_vit_tpu_torch.models.vit import ViTSpec
+    from yolov8_vit_tpu_torch.ops.attention import flash_attention_plain
+    from yolov8_vit_tpu_torch.runtime.engine import TWO_STAGE_OUTPUTS, Engine
+    from yolov8_vit_tpu_torch.weights import save_engine
+    root = os.path.join(ENGINE_DIR, "engine")
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {}
+    try:
+        # ViT-B/8 classify engine, attn_impl="pallas", stored bf16
+        spec = ViTSpec(attn_impl="pallas")
+        t0 = time.perf_counter()
+        path = save_engine(os.path.join(root, "classify_b8"), "classify",
+                           {"params": vit_b8_tree},
+                           {"vit_spec": dataclasses.asdict(spec),
+                            "num_classes": 5}, param_dtype="bfloat16")
+        eng = Engine(path, device="cuda", dtype=torch.bfloat16)
+        out["classify_save_load_s"] = time.perf_counter() - t0
+        g = torch.Generator().manual_seed(7)
+        imgs = (torch.rand(BATCH * BUDGET, 3, 224, 224, generator=g) * 2
+                - 1).to("cuda")                             # NCHW, [-1, 1]
+        eng(imgs[:2])                                       # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        logits = eng(imgs)
+        torch.cuda.synchronize()
+        out["classify_launches"] = _path_launches(
+            ops, "engine_classify", ("flash_attention",),
+            A_B + C_D + ("fused_attention_block",))
+        if tuple(logits.shape) != (len(imgs), 5) \
+                or not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"engine classify: logits "
+                                 f"{tuple(logits.shape)} not finite")
+        out["classify_ms"] = _time_ms(lambda: eng(imgs), 3)
+        # the same model with kernel F's plain version: bf16 roundings
+        # agree but for f32 summation order, so the logits stay within 5%
+        # of their spread (the bf16 bar of tests/test_torch_vit.py)
+        kernel_f = vit_mod.flash_attention
+        vit_mod.flash_attention = flash_attention_plain
+        try:
+            ref = eng(imgs)
+        finally:
+            vit_mod.flash_attention = kernel_f
+        lf, rf = logits.float(), ref.float()
+        rel = float((lf - rf).abs().max() / (rf.max() - rf.min()))
+        out["classify_vs_plain_rel_err"] = rel
+        out["classify_argmax_agree"] = float(
+            (lf.argmax(-1) == rf.argmax(-1)).float().mean())
+        if rel > 0.05:
+            raise AssertionError(f"engine classify vs plain F: {rel}")
+        del eng
+
+        # two_stage engine of phase 5's weights, NCHW uint8 frames
+        b16 = b16_runner.pipeline
+        path = save_engine(os.path.join(root, "two_stage_b16"), "two_stage",
+                           b16_tree,
+                           {"detect_cfg": dataclasses.asdict(DetectConfig()),
+                            "vit_spec": dataclasses.asdict(b16.vit_spec),
+                            "num_classes": 5, "classify_budget": BUDGET})
+        eng = Engine(path, device="cuda", dtype=torch.bfloat16)
+        nchw = frames.permute(0, 3, 1, 2)
+        eng(nchw)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = dict(zip(TWO_STAGE_OUTPUTS, eng(nchw)))
+        torch.cuda.synchronize()
+        out["two_stage_launches"] = _path_launches(
+            ops, "engine_two_stage", A_B + C_D, E_F)
+        ref = b16(frames)
+        for k in ("num_dets", "det_labels", "final_valid", "cls_labels"):
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"engine two_stage: {k} differs from "
+                                     f"the pipeline")
+        out["two_stage_kept"] = int(got["final_valid"].sum())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def detector_convs(torch, det, frames, ref_frames: int = 8,
+                   cpu_frames: int = 2) -> dict:
+    """Phase 9: the bf16 YOLOv8-s of phase 5 on its batch of 32 frames.
+    Every conv the forward runs (operands rounded to bf16, held in f32,
+    TF32 allowed) is run again at the same shape and held against the
+    same conv in f64 on the first `ref_frames` frames, its error taken as a
+    share of sum |w x| (within CONV_TOL).  Then the first `cpu_frames`
+    frames go through a CPU copy of the detector: the share of the stem's
+    outputs (b0, b1) that differ from the card's (within STEM_DIFF_SHARE)
+    and the head maps' largest difference (reported)."""
+    import torch.nn.functional as F
+    from yolov8_vit_tpu_torch.models.yolov8 import (YOLOv8, ConvBlock,
+                                                    conv_f32)
+    from yolov8_vit_tpu_torch.ops import blob, letterbox_fast
+    from yolov8_vit_tpu_torch.weights import load_tree, module_tree
+    bf16 = torch.bfloat16
+    lb, _, _ = letterbox_fast(frames, (640, 640), dtype=bf16)
+    x = blob(lb).to(bf16)
+    convs, outs = [], {}
+
+    def on_block(name):
+        def hook(mod, inp):
+            convs.append((name, inp[0], mod.w, mod.s))
+        return hook
+
+    def on_head(mod, inp):
+        convs.extend((f"detect.entry{i}", f, getattr(mod, f"entry{i}_w"), 1)
+                     for i, f in enumerate(inp[0]))
+
+    hooks = [det.detect.register_forward_pre_hook(on_head)]
+    hooks += [m.register_forward_pre_hook(on_block(n))
+              for n, m in det.named_modules() if isinstance(m, ConvBlock)]
+    hooks += [getattr(det, n).register_forward_hook(
+        lambda _m, _i, o, n=n: outs.__setitem__(n, o)) for n in ("b0", "b1")]
+    try:
+        with torch.no_grad():
+            heads = det(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, per_conv = 0.0, {}
+    with torch.no_grad():
+        for name, xin, w, stride in convs:
+            y = conv_f32(xin.float(), w, stride, operands_in_bf16=True)
+            xd, wd = xin[:ref_frames].double(), w.double()
+            pad = w.shape[-1] // 2
+            ref = F.conv2d(xd, wd, stride=stride, padding=pad)
+            mag = F.conv2d(xd.abs(), wd.abs(), stride=stride, padding=pad)
+            rel = float(((y[:ref_frames].double() - ref).abs()
+                         / mag.clamp_min(1e-300)).max())
+            per_conv[name] = rel
+            worst = max(worst, rel)
+            del y, xd, ref, mag
+    if worst > CONV_TOL:
+        bad = {k: v for k, v in per_conv.items() if v > CONV_TOL}
+        raise AssertionError(f"detector convs under TF32 off their f64 "
+                             f"value beyond {CONV_TOL}: {bad}")
+
+    cpu = YOLOv8(det.spec, dtype=bf16)
+    load_tree(cpu, module_tree(det))
+    xc = x[:cpu_frames].cpu()
+    cpu_outs = {}
+    hooks = [getattr(cpu, n).register_forward_hook(
+        lambda _m, _i, o, n=n: cpu_outs.__setitem__(n, o)) for n in ("b0", "b1")]
+    try:
+        with torch.no_grad():
+            cpu_heads = cpu(xc)
+    finally:
+        for h in hooks:
+            h.remove()
+    stem = {n: int((outs[n][:cpu_frames].cpu() != cpu_outs[n]).sum())
+            for n in ("b0", "b1")}
+    stem_n = {n: cpu_outs[n].numel() for n in ("b0", "b1")}
+    if any(stem[n] > STEM_DIFF_SHARE * stem_n[n] for n in stem):
+        raise AssertionError(f"detector stem card vs CPU: {stem} of "
+                             f"{stem_n} outputs differ")
+    head_err = max(float((g[:cpu_frames].cpu() - r).abs().max())
+                   for gl, rl in zip(heads, cpu_heads) for g, r in zip(gl, rl))
+    return {"convs": len(convs), "max_rel_err_vs_f64": worst,
+            "per_conv": per_conv, "stem_elements_differing_vs_cpu": stem,
+            "stem_elements": stem_n, "head_max_abs_err_vs_cpu": head_err}
+
+
+def profile_step(torch, runner, frames, path: str) -> dict:
     """torch.profiler over two fused steps: device time by kernel, written
-    to out_dir/profile_step.txt; returns the per-step device time and the
-    top kernels."""
+    to `path`; returns the per-step device time and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     runner._fn(frames)
     torch.cuda.synchronize()
@@ -358,10 +864,15 @@ def profile_step(torch, runner, frames, out_dir: str) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and getattr(e, attr) > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    with open(os.path.join(out_dir, "profile_step.txt"), "w") as f:
+    with open(path, "w") as f:
         f.write(ka.table(sort_by=attr, row_limit=40))
     return {"device_us_per_step": busy_us / 2,
             "top": [(k[:60], round(us / 2, 1), n // 2) for k, us, n in rows[:12]]}
+
+
+def _report(name: str, rep: dict) -> None:
+    print(f"{name}: " + json.dumps(
+        {k: v for k, v in rep.items() if k != "frames"}), flush=True)
 
 
 def main() -> int:
@@ -381,6 +892,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = _smi()
     print(f"card: {smi}", flush=True)
+    t_all = time.perf_counter()
 
     t0 = time.perf_counter()
     build_s = _build.build()
@@ -388,42 +900,79 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    rows = check_kernels(torch, ops, mlp_rows=64 * 197, crops=64)
+    rows = check_kernels(torch, ops, mlp_rows=64 * 197, crops=BATCH * BUDGET)
+    b8_rows, f32_err, bf16_stats = check_attention_b8(torch, ops, crops=BATCH * BUDGET,
+                                          f32_crops=16)
+    rows += b8_rows
     for r in rows:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) max_abs_err {r['max_abs_err']}", flush=True)
+              f"({r['bound_by']}) library_ms {r['library_ms']} "
+              f"max_abs_err {r['max_abs_err']}", flush=True)
+    print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
+    print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
+          f"{json.dumps(bf16_stats)}")
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    small = small_input_check(torch)
+    small = {q: small_input_check(torch, q) for q in ("w8a", "none")}
     print(f"small input card == CPU: {small}", flush=True)
 
+    paths = {}
     t0 = time.perf_counter()
-    full = full_slice(torch, ops, BATCHES)
-    print(f"full slice ({time.perf_counter() - t0:.1f} s): " + json.dumps(
-        {k: v for k, v in full.items() if k not in ("runner", "frames")}),
-        flush=True)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof = profile_step(torch, full.pop("runner"), full.pop("frames"),
-                        OUT_DIR)
-    # share of the (unprofiled) fused step the device spends in kernels
-    prof["busy_share"] = prof["device_us_per_step"] / (
-        full["fused_step_ms"] * 1e3)
-    print(f"profile of one fused step: {json.dumps(prof)}", flush=True)
+    paths["vit_b16_w8a"], b16_runner, b16_tree = b16_w8a_slice(
+        torch, ops, BATCHES)
+    _report(f"ViT-B/16 w8a slice ({time.perf_counter() - t0:.1f} s)",
+            paths["vit_b16_w8a"])
+    t0 = time.perf_counter()
+    paths["vit_b8_float"], b8_runner, b8_tree = b8_float_slice(
+        torch, ops, BATCHES)
+    _report(f"ViT-B/8 float slice ({time.perf_counter() - t0:.1f} s)",
+            paths["vit_b8_float"])
+    frames = paths["vit_b8_float"]["frames"]
+    t0 = time.perf_counter()
+    runs = b8_engine_runs(torch, ops, b8_tree["det"],
+                          b8_tree["vit"]["params"], frames)
+    paths.update(runs)
+    _report(f"ViT-B/8 engines through make_runner "
+            f"({time.perf_counter() - t0:.1f} s)", runs)
+    t0 = time.perf_counter()
+    eng = engine_phase(torch, ops, b8_tree["vit"]["params"], b16_runner,
+                       b16_tree, paths["vit_b16_w8a"]["frames"])
+    paths["engine_classify"] = {"launches": eng["classify_launches"]}
+    _report(f"Engine ({time.perf_counter() - t0:.1f} s)", eng)
+    t0 = time.perf_counter()
+    conv = detector_convs(torch, b16_runner.pipeline.det,
+                          paths["vit_b16_w8a"]["frames"])
+    _report(f"detector convs ({time.perf_counter() - t0:.1f} s)",
+            {k: v for k, v in conv.items() if k != "per_conv"})
 
-    names = {"nms_argmax_ml": "efficient_nms_scan",
-             "mask_scan": "area_sorted_nms",
-             "quant_mlp_ln": "quant_mlp_ln_fused",
-             "attn_block_i8": "fused_attention_block_i8"}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof = {}
+    for name, runner in (("vit_b16_w8a", b16_runner),
+                         ("vit_b8_float", b8_runner)):
+        p = profile_step(torch, runner, paths[name].pop("frames"),
+                         os.path.join(OUT_DIR, f"profile_{name}.txt"))
+        # share of the (unprofiled) fused step the device spends in kernels
+        p["busy_share"] = p["device_us_per_step"] / (
+            paths[name]["fused_step_ms"] * 1e3)
+        prof[name] = p
+        print(f"profile of one {name} fused step: {json.dumps(p)}",
+              flush=True)
+
     kernels = []
     for r in rows:
-        r = dict(r, launches=full["launches"][names[r["name"]]])
+        wrapper, path = ROW_WRAPPER[r["name"]]
+        r = dict(r, launches=paths[path]["launches"][wrapper])
         r.pop("picks", None)
         kernels.append(r)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build_s": build_s, "kernels": kernels,
-                   "small_input": small, "full_slice": full,
-                   "profile": prof}, f, indent=1)
+                   "f32_checks": f32_err, "bf16_checks": bf16_stats,
+                   "small_input": small,
+                   "paths": paths, "engine": eng, "detector_convs": conv,
+                   "profile": prof,
+                   "total_s": time.perf_counter() - t_all}, f, indent=1)
+    print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -223,18 +223,37 @@ def test_stable_compaction_ties(params):
     assert per_frame.sum() == 4 and (np.diff(per_frame) <= 0).all()
 
 
-def test_make_runner_needs_w8a_and_defaults_to_cuda(tmp_path):
+def test_make_runner_needs_w8a_and_defaults_to_cuda(params, tmp_path):
+    """Formerly the refusal of every ViT but w8a: a float classify engine
+    (quant "none", the default spec's mode) now serves through the fused
+    float attention and equals the JAX runner on the same dirs; without
+    device="cpu" the runner still asks for the card."""
+    from yolov8_vit_tpu.models.vit import ViTClassifier as JViT
     from yolov8_vit_tpu.runtime.engine import save_engine
+    from yolov8_vit_tpu.serve.batch_runner import make_runner as j_make
     from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
-    with pytest.raises(NotImplementedError, match="_attn_block_kernel"):
-        make_runner(device="cpu")
     spec = JViTSpec(img_size=32, patch=8, dim=64, depth=1, heads=4,
                     backbone_classes=8)
-    eng = str(tmp_path / "cls")
-    save_engine(eng, "classify", {"params": {}},
+    vit = jax.tree.map(np.asarray, jax.jit(JViT(spec, 5).init)(
+        jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3))))
+    det, eng = str(tmp_path / "det"), str(tmp_path / "cls")
+    save_engine(det, "detect", params["det"], {"detect_cfg": DENSE})
+    save_engine(eng, "classify", vit,
                 {"vit_spec": dataclasses.asdict(spec), "num_classes": 5})
-    with pytest.raises(NotImplementedError, match="_attn_block_kernel"):
-        make_runner(vit_engine_path=eng, device="cpu")
+    port = make_runner(det, eng, classify_budget=2, dtype=torch.float32,
+                       device="cpu")
+    assert port.pipeline.vit_spec.quant == "none"
+    ref = j_make(det, eng, classify_budget=2, dtype=jnp.float32)
+    frames = np.random.default_rng(6).integers(0, 256, (4, 64, 64, 3),
+                                               np.uint8)
+    got = port._unpack(port._fn(torch.from_numpy(frames)).numpy())
+    want = ref._unpack(np.asarray(ref._fn(ref.params, jnp.asarray(frames))))
+    assert sum(int(r["final_valid"].sum()) for r in want) > 0
+    for a, b in zip(got, want):
+        for k in ("num_dets", "det_labels", "final_valid", "cls_labels"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        for k, tol in TOL.items():
+            np.testing.assert_allclose(a[k], b[k], atol=tol, err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             make_runner()

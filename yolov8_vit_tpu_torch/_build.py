@@ -29,9 +29,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "nms": "nms.cu",                 # kernels A and B
     "quant_mlp": "quant_mlp.cu",     # kernel C
-    "attention": "attention.cu",     # kernel D
+    "attention": "attention.cu",     # kernels D, E and F
 }
-HEADERS = ("int8_common.cuh",)
+HEADERS = ("int8_common.cuh", "sdpa.cuh", "gemm_float.cuh")
 
 # -fmad=false: no contracted multiply-adds, so IoU and quantization
 # arithmetic rounds exactly as the plain versions do (a contracted FMA

@@ -9,7 +9,7 @@
     -> integer box round + (side//10)//2 inflation      [ops.boxes]
     -> batch compaction to B * budget crop slots
     -> int8 crops in ViT patch layout (gather)          [ops.crop]
-    -> W8A8 ViT (kernels D and C per block) -> argmax   [models.vit]
+    -> ViT (kernels C-F by quant mode) -> argmax        [models.vit]
 
 Shapes are static per input size, and nothing on the CUDA path waits for
 the device: the whole forward enqueues on the current stream.
@@ -46,7 +46,7 @@ class TwoStagePipeline(nn.Module):
         self.classify_budget = classify_budget
         self.dtype = dtype
         self.det_overrides = det_overrides
-        self.det = YOLOv8(detect_spec(det_cfg, det_overrides))
+        self.det = YOLOv8(detect_spec(det_cfg, det_overrides), dtype=dtype)
         self.vit = ViTClassifier(vit_spec, num_classes, dtype=dtype)
         self.to(self.device)
 

@@ -1,14 +1,22 @@
-"""Vision Transformer classifier, W8A8 fused inference path (PyTorch port).
+"""Vision Transformer classifier (PyTorch port).
 
 A timm-style ViT backbone (pre-norm blocks, LN eps 1e-6, cls token, learned
 pos-embed, final LN on the cls token) wrapped by the MLP head ReLU ->
 Linear(backbone_classes, 128) -> ReLU -> Linear(128, num_classes), as the
-JAX package's `ViTClassifier`.  The port runs the `quant="w8a"`,
-`attn_impl="fused"` path: every block is kernel D (attention sub-block)
-then kernel C (MLP sub-block).  Other quant modes need the bf16/f32 fused
-attention kernel (`_attn_block_kernel`), which a later slice ports.
+JAX package's `ViTClassifier`, for every spec it accepts.  A block is
+
+  attention  attn_impl "fused": kernel D (quant "w8a") or kernel E;
+             "xla": LN1, qkv, einsum attention, proj (torch ops);
+             "pallas": the same with kernel F for the attention;
+  MLP        quant "w8"/"w8a": kernel C; "none": LN2, Dense, exact GELU,
+             Dense; "dynamic": the same with per-call int8 dense layers.
 
 Module and buffer names follow the flax parameter tree, as in yolov8.py.
+Buffers keep the dtype of the tree they were loaded from (a bf16-stored
+engine stays bf16).  Weights in the activation dtype and the int8
+patch-embed fold are non-persistent buffers made by
+`ViTClassifier.prepare`, once per load (`weights.load_tree` calls it), not
+per forward.
 """
 from __future__ import annotations
 
@@ -19,8 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolov8_vit_tpu_torch.ops.attention import fused_attention_block_i8
-from yolov8_vit_tpu_torch.ops.quant import quant_mlp_ln_fused
+from yolov8_vit_tpu_torch.ops.attention import (flash_attention,
+                                                fused_attention_block,
+                                                fused_attention_block_i8,
+                                                sdpa_heads_plain)
+from yolov8_vit_tpu_torch.ops.quant import quant_dense, quant_mlp_ln_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,17 +76,6 @@ VIT_B8_224 = ViTSpec()
 VIT_B16_224 = ViTSpec(patch=16)
 
 
-def require_ported(spec: ViTSpec) -> None:
-    """Raise for a spec whose forward needs a kernel not yet ported."""
-    if spec.quant != "w8a" or spec.attn_impl != "fused":
-        raise NotImplementedError(
-            f"ViT quant={spec.quant!r} attn_impl={spec.attn_impl!r} needs "
-            f"the fused bf16/f32 attention kernel `_attn_block_kernel` "
-            f"(yolov8_vit_tpu/ops/attention.py), not yet ported: see "
-            f"ROADMAP.md, kernels still to port.  The port serves "
-            f"quant='w8a' engines.")
-
-
 class Dense(nn.Module):
     """flax nn.Dense params: kernel (in, out), bias (out,)."""
 
@@ -90,10 +90,26 @@ class Dense(nn.Module):
                               generator=gen)
         self.bias.zero_()
 
+    def derive(self, dtype) -> None:
+        """kernel_c, bias_c: kernel and bias in the activation dtype."""
+        self.register_buffer("kernel_c", self.kernel.to(dtype),
+                             persistent=False)
+        self.register_buffer("bias_c", self.bias.to(dtype), persistent=False)
+
     def forward(self, x):
         """flax Dense(dtype=x.dtype): operands and bias in x's dtype."""
-        dt = x.dtype
-        return x @ self.kernel.to(dt) + self.bias.to(dt)
+        return x @ self.kernel_c + self.bias_c
+
+
+class QuantDense(Dense):
+    """nn.Dense's params with the int8 product, the weight quantized per
+    call (quant="dynamic", ops.quant.quant_dense)."""
+
+    def derive(self, dtype) -> None:
+        """Nothing: the weight is quantized per call, as JAX does."""
+
+    def forward(self, x):
+        return quant_dense(x, self.kernel, self.bias)
 
 
 class QDense(nn.Module):
@@ -131,46 +147,81 @@ class LayerNorm(nn.Module):
 
 
 class _Attn(nn.Module):
+    """qkv and proj under the flax `attn` scope; forward is the unfused
+    attention ("xla" and "pallas")."""
+
     def __init__(self, dim: int, dense):
         super().__init__()
         self.qkv = dense(dim, 3 * dim)
         self.proj = dense(dim, dim)
 
+    def forward(self, h, heads: int, impl: str, t_real):
+        b, t, d = h.shape
+        qkv = self.qkv(h)
+        if impl == "pallas":
+            q, k, v = qkv.reshape(b, t, 3, heads, d // heads).unbind(2)
+            o = flash_attention(q, k, v).to(h.dtype).reshape(b, t, d)
+        else:
+            o = sdpa_heads_plain(qkv, heads, t_real)
+        return self.proj(o)
+
+
+def _dense_classes(spec: ViTSpec):
+    """(attention dense, MLP dense) module classes for `spec`.  The fused
+    float attention (kernel E) takes the float params whatever the quant,
+    as JAX's does."""
+    if spec.quant == "w8a":
+        return QDense, QDense
+    dynamic = QuantDense if spec.quant == "dynamic" else Dense
+    attn = Dense if spec.attn_impl == "fused" else dynamic
+    return attn, QDense if spec.quant == "w8" else dynamic
+
 
 class Block(nn.Module):
-    """Pre-norm transformer block.  Its params hold the w8a layout
-    (QDense) when spec.quant == "w8a", else the float layout (Dense), which
-    is what port-native init fills before prequantizing."""
+    """Pre-norm transformer block, params in the layout of `spec.quant`."""
 
     def __init__(self, spec: ViTSpec):
         super().__init__()
         self.spec = spec
-        dense = QDense if spec.quant == "w8a" else Dense
+        attn_dense, mlp_dense = _dense_classes(spec)
         hidden = int(spec.dim * spec.mlp_ratio)
         self.norm1 = LayerNorm(spec.dim, spec.ln_eps)
-        self.attn = _Attn(spec.dim, dense)
+        self.attn = _Attn(spec.dim, attn_dense)
         self.norm2 = LayerNorm(spec.dim, spec.ln_eps)
-        self.mlp_fc1 = dense(spec.dim, hidden)
-        self.mlp_fc2 = dense(hidden, spec.dim)
+        self.mlp_fc1 = mlp_dense(spec.dim, hidden)
+        self.mlp_fc2 = mlp_dense(hidden, spec.dim)
 
     def forward(self, x, t_real=None):
-        require_ported(self.spec)
         s = self.spec
+        dt = x.dtype
         q, p = self.attn.qkv, self.attn.proj
-        x = fused_attention_block_i8(
-            x, self.norm1.scale, self.norm1.bias, q.kernel_i8, q.w_scale,
-            q.bias, p.kernel_i8, p.w_scale, p.bias, heads=s.heads,
-            ln_eps=s.ln_eps, t_real=t_real)
+        n1 = self.norm1
+        if s.attn_impl == "fused" and s.quant == "w8a":
+            x = fused_attention_block_i8(
+                x, n1.scale, n1.bias, q.kernel_i8, q.w_scale, q.bias,
+                p.kernel_i8, p.w_scale, p.bias, heads=s.heads,
+                ln_eps=s.ln_eps, t_real=t_real)
+        elif s.attn_impl == "fused":
+            x = fused_attention_block(
+                x, n1.scale, n1.bias, q.kernel_c, q.bias, p.kernel_c,
+                p.bias, heads=s.heads,
+                ln_eps=s.ln_eps, t_real=t_real)
+        else:
+            x = x + self.attn(n1(x, dt), s.heads, s.attn_impl, t_real)
         f1, f2 = self.mlp_fc1, self.mlp_fc2
-        return quant_mlp_ln_fused(
-            x, self.norm2.scale, self.norm2.bias, f1.kernel_i8, f1.w_scale,
-            f1.bias, f2.kernel_i8, f2.w_scale, f2.bias, ln_eps=s.ln_eps)
+        if s.quant in ("w8", "w8a"):
+            return quant_mlp_ln_fused(
+                x, self.norm2.scale, self.norm2.bias, f1.kernel_i8,
+                f1.w_scale, f1.bias, f2.kernel_i8, f2.w_scale, f2.bias,
+                ln_eps=s.ln_eps)
+        h = f2(F.gelu(f1(self.norm2(x, dt))))
+        return x + h
 
 
 class PatchEmbed(nn.Module):
     """Patch-embedding conv params, kept in the tree's HWIO layout
     (patch, patch, 3, dim): the port patchifies as a matmul over patch
-    pixels, never as a conv."""
+    pixels in (row, column, channel) order, which is the conv."""
 
     def __init__(self, patch: int, dim: int):
         super().__init__()
@@ -182,6 +233,31 @@ class PatchEmbed(nn.Module):
         nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
                               generator=gen)
         self.bias.zero_()
+
+    def int8_fold(self):
+        """(W / 127.5, bias + sum(W) / 255) in f32: the [-1, 1]
+        normalization (v + 0.5) / 127.5 of int8 patches holding pixel - 128
+        folded into the embedding.  sum(W) is taken in f32 and rounded once
+        to the stored kernel's dtype, as XLA reduces a bf16 leaf."""
+        k, f32 = self.kernel, torch.float32
+        w = k.reshape(-1, k.shape[-1]).to(f32) / 127.5
+        ksum = k.to(f32).sum(dim=(0, 1, 2)).to(k.dtype)
+        return w, self.bias.to(f32) + ksum.to(f32) / 255.0
+
+    def derive(self, dtype) -> None:
+        """The patchify matmul's weights: fold_w / fold_b for int8 patches
+        and w_patch for float ones (dtype-rounded, held as f32, bias f32);
+        w_conv / b_conv in dtype for NHWC images (the flax conv)."""
+        f32 = torch.float32
+        fold_w, fold_b = self.int8_fold()
+        kern = self.kernel.reshape(-1, self.kernel.shape[-1])
+        for name, t in (("fold_w", fold_w.to(dtype).to(f32)),
+                        ("fold_b", fold_b),
+                        ("w_patch", kern.to(dtype).to(f32)),
+                        ("b_patch", self.bias.to(f32)),
+                        ("w_conv", kern.to(dtype)),
+                        ("b_conv", self.bias.to(dtype))):
+            self.register_buffer(name, t, persistent=False)
 
 
 class ViT(nn.Module):
@@ -202,25 +278,49 @@ class ViT(nn.Module):
         self.cls_token.zero_()
         self.pos_embed.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, patches: torch.Tensor, dtype) -> torch.Tensor:
-        """patches (K, n_patches, patch, patch*3) int8 holding pixel - 128
-        (ops.crop.crop_to_patches_i8 layout) -> (K, backbone_classes).  The
-        [-1, 1] normalization (v + 0.5) / 127.5 folds into the embedding:
-        x @ (W / 127.5) + (sum(W) / 255 + bias)."""
+    def derive(self, dtype) -> None:
+        """cls token and position embedding in the activation dtype."""
+        self.register_buffer("cls_c", self.cls_token.to(dtype),
+                             persistent=False)
+        self.register_buffer("pos_c", self.pos_embed.to(dtype),
+                             persistent=False)
+
+    def embed(self, img: torch.Tensor, dtype) -> torch.Tensor:
+        """(B, n_patches, dim) token embeddings in `dtype`.
+
+        img is either pre-blocked patches (B, n_patches, patch, 3 * patch)
+        (ops.crop.crop_to_patches_i8 layout: int8 pixel - 128 with the
+        normalization folded into the embedding, or float in [-1, 1]) with
+        an f32-accumulated product plus bias rounded once, or NHWC images
+        in [-1, 1], embedded as the flax conv(dtype) is: operands and bias
+        in `dtype`."""
         s = self.spec
-        if patches.dtype != torch.int8 or patches.dim() != 4 \
-                or patches.shape[-2:] != (s.patch, 3 * s.patch):
-            raise ValueError(f"expected int8 (K, n_patches, {s.patch}, "
-                             f"{3 * s.patch}) patches, got {patches.dtype} "
-                             f"{tuple(patches.shape)}")
-        k = self.patch_embed.kernel
-        w = k.reshape(s.patch * s.patch * 3, s.dim) / 127.5
-        bias = self.patch_embed.bias + k.sum(dim=(0, 1, 2)) / 255.0
-        b, n = patches.shape[:2]
-        x = patches.reshape(b, n, -1).to(dtype) @ w.to(dtype)
-        x = (x.to(torch.float32) + bias).to(dtype)
-        cls = self.cls_token.to(dtype).expand(b, 1, s.dim)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
+        pe = self.patch_embed
+        f32 = torch.float32
+        b = img.shape[0]
+        if img.dim() == 4 and img.shape[-2:] == (s.patch, 3 * s.patch):
+            if img.dtype == torch.int8:
+                w, bias = pe.fold_w, pe.fold_b
+            else:
+                w, bias = pe.w_patch, pe.b_patch
+            x = img.reshape(b, img.shape[1], -1).to(dtype).to(f32) @ w
+            return (x + bias).to(dtype)
+        if img.dim() != 4 or img.shape[-1] != 3:
+            raise ValueError(f"expected NHWC images or (K, n_patches, "
+                             f"{s.patch}, {3 * s.patch}) patches, got "
+                             f"{tuple(img.shape)}")
+        p = s.patch
+        gh, gw = img.shape[1] // p, img.shape[2] // p
+        patches = img[:, :gh * p, :gw * p].reshape(b, gh, p, gw, p, 3) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * 3)
+        return patches.to(dtype) @ pe.w_conv + pe.b_conv
+
+    def forward(self, img: torch.Tensor, dtype) -> torch.Tensor:
+        """img (see `embed`) -> (B, backbone_classes) logits in `dtype`."""
+        s = self.spec
+        x = self.embed(img, dtype)
+        b = x.shape[0]
+        x = torch.cat([self.cls_c.expand(b, 1, s.dim), x], dim=1) + self.pos_c
         t_real = None
         if s.pad_tokens and s.pad_tokens > s.tokens:
             x = F.pad(x, (0, 0, 0, s.pad_tokens - s.tokens))
@@ -241,7 +341,15 @@ class ViTClassifier(nn.Module):
         self.model = ViT(spec)
         self.fc1 = Dense(spec.backbone_classes, hidden)
         self.fc2 = Dense(hidden, num_classes)
+        self.prepare()
 
-    def forward(self, patches: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.model(patches, self.dtype))
+    def prepare(self) -> None:
+        """Make every submodule's derived buffers for `self.dtype`: at
+        construction and after each load (weights.load_tree)."""
+        for m in self.modules():
+            if hasattr(m, "derive"):
+                m.derive(self.dtype)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.model(img, self.dtype))
         return self.fc2(torch.relu(self.fc1(h)))

@@ -13,6 +13,7 @@ HWIO in the tree.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Sequence
@@ -84,16 +85,43 @@ class Conv(nn.Module):
         self.bias.fill_(self.bias_init)
 
 
-def _conv_silu(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-               stride: int) -> torch.Tensor:
-    """Conv in x's dtype, then the f32 bias and SiLU, cast back to x's
-    dtype.  (The JAX package accumulates in f32 and adds the bias before
-    rounding; a bf16 torch conv rounds its output first, so bf16 results
-    differ by about one bf16 ulp.)"""
+@contextlib.contextmanager
+def _cudnn_tf32(allow: bool):
+    """cuDNN's TF32 switch for the convolutions inside the block only."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv_f32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+             bias: torch.Tensor | None = None,
+             operands_in_bf16: bool = False) -> torch.Tensor:
+    """f32 conv with 'same' padding and f32 accumulation.  When both
+    operands hold bf16 values (`operands_in_bf16`), cuDNN may run it in
+    TF32: a bf16 value is exact in TF32, so every product is exact and the
+    sum is f32 as XLA's bf16 conv with f32 accumulation computes it.
+    Otherwise TF32 is off (full f32 products), whatever the global flag."""
     k = kernel.shape[-1]
-    y = F.conv2d(x, kernel.to(x.dtype), stride=stride, padding=k // 2)
-    y = y.to(torch.float32) + bias[:, None, None]
-    return F.silu(y).to(x.dtype)
+    with _cudnn_tf32(operands_in_bf16):
+        return F.conv2d(x, kernel, bias, stride=stride, padding=k // 2)
+
+
+def _rounded_f32(kernel: torch.Tensor, dtype) -> torch.Tensor:
+    """kernel rounded to the activation dtype, held as f32 for conv_f32."""
+    return kernel.to(dtype).to(torch.float32)
+
+
+def _conv_silu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               stride: int) -> torch.Tensor:
+    """The JAX ConvBlock: conv of x's-dtype operands (w: the kernel
+    rounded to x's dtype, as f32) accumulated in f32, plus the bias in
+    f32, SiLU, one rounding to x's dtype."""
+    f32 = torch.float32
+    y = conv_f32(x.to(f32), w, stride, operands_in_bf16=x.dtype != f32)
+    return F.silu(y + bias.to(f32)[:, None, None]).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -102,8 +130,12 @@ class ConvBlock(nn.Module):
         self.s = s
         self.conv = Conv(cin, out, k)
 
+    def derive(self, dtype) -> None:
+        self.register_buffer("w", _rounded_f32(self.conv.kernel, dtype),
+                             persistent=False)
+
     def forward(self, x):
-        return _conv_silu(x, self.conv.kernel, self.conv.bias, self.s)
+        return _conv_silu(x, self.w, self.conv.bias, self.s)
 
 
 class Bottleneck(nn.Module):
@@ -158,12 +190,13 @@ class SPPF(nn.Module):
 class DetectHead(nn.Module):
     """Decoupled anchor-free head: box-DFL branch + cls branch per level.
     The two branch-entry convs share their input and run as ONE conv on
-    concatenated weights; the final 1x1 convs run in f32 (flax promotes
-    their bf16 input against the f32 params)."""
+    concatenated weights; the final 1x1 convs run in the promotion of
+    input and param dtypes, as flax's nn.Conv does (f32 for f32 params)."""
 
     def __init__(self, spec: YOLOv8Spec, in_channels: Sequence[int]):
         super().__init__()
         self.spec = spec
+        self.levels = len(in_channels)
         self.c2 = c2 = max(16, in_channels[0] // 4, spec.reg_max * 4)
         c3 = max(in_channels[0], min(spec.num_classes, 100))
         for i, cin in enumerate(in_channels):
@@ -176,31 +209,55 @@ class DetectHead(nn.Module):
             setattr(self, f"cls{i}_1", ConvBlock(c3, c3, 3))
             setattr(self, f"cls{i}_2", Conv(c3, spec.num_classes, 1, prior))
 
+    def derive(self, dtype) -> None:
+        """entry{i}_w / entry{i}_b: level i's two branch-entry convs as one
+        (kernel rounded to dtype, held as f32)."""
+        for i in range(self.levels):
+            b0 = getattr(self, f"box{i}_0").conv
+            c0 = getattr(self, f"cls{i}_0").conv
+            self.register_buffer(
+                f"entry{i}_w",
+                _rounded_f32(torch.cat([b0.kernel, c0.kernel]), dtype),
+                persistent=False)
+            self.register_buffer(f"entry{i}_b", torch.cat([b0.bias, c0.bias]),
+                                 persistent=False)
+
+    @staticmethod
+    def _out_conv(x: torch.Tensor, conv: Conv) -> torch.Tensor:
+        """flax nn.Conv(dtype=None): computes in the promotion of the
+        input's and the params' dtypes; a bf16 result rounds before the
+        bf16 bias add, as flax's does."""
+        dt = torch.promote_types(x.dtype, conv.kernel.dtype)
+        f32 = torch.float32
+        if dt == f32:
+            return conv_f32(x.to(f32), conv.kernel.to(f32), 1,
+                            conv.bias.to(f32))
+        y = conv_f32(x.to(dt).to(f32), conv.kernel.to(dt).to(f32), 1,
+                     operands_in_bf16=True)
+        return y.to(dt) + conv.bias.to(dt)[:, None, None]
+
     def forward(self, feats):
         outs = []
         for i, f in enumerate(feats):
-            b0 = getattr(self, f"box{i}_0").conv
-            c0 = getattr(self, f"cls{i}_0").conv
-            y = _conv_silu(f, torch.cat([b0.kernel, c0.kernel]),
-                           torch.cat([b0.bias, c0.bias]), 1)
+            y = _conv_silu(f, getattr(self, f"entry{i}_w"),
+                           getattr(self, f"entry{i}_b"), 1)
             b = getattr(self, f"box{i}_1")(y[:, :self.c2])
             c = getattr(self, f"cls{i}_1")(y[:, self.c2:])
-            b2 = getattr(self, f"box{i}_2")
-            c2 = getattr(self, f"cls{i}_2")
-            b = F.conv2d(b.to(torch.float32), b2.kernel, b2.bias)
-            c = F.conv2d(c.to(torch.float32), c2.kernel, c2.bias)
+            b = self._out_conv(b, getattr(self, f"box{i}_2"))
+            c = self._out_conv(c, getattr(self, f"cls{i}_2"))
             outs.append((b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)))
         return outs
 
 
 class YOLOv8(nn.Module):
-    """Backbone + PAN neck + detect head.  forward(img NHWC) returns
-    per-level (box_dist (B, H, W, 4*reg_max), cls_logits (B, H, W, nc))
-    NHWC f32 maps."""
+    """Backbone + PAN neck + detect head.  forward(img NHWC in `dtype`, the
+    activation dtype) returns per-level (box_dist (B, H, W, 4*reg_max),
+    cls_logits (B, H, W, nc)) NHWC f32 maps."""
 
-    def __init__(self, spec: YOLOv8Spec):
+    def __init__(self, spec: YOLOv8Spec, dtype=torch.float32):
         super().__init__()
         self.spec = s = spec
+        self.dtype = dtype
 
         def ch(c):
             return _ch(c, s)
@@ -225,8 +282,20 @@ class YOLOv8(nn.Module):
         self.n19 = ConvBlock(ch(512), ch(512), 3, 2)
         self.n21 = C2f(ch(512) + ch(1024), ch(1024), n(3), False)
         self.detect = DetectHead(s, [ch(256), ch(512), ch(1024)])
+        self.prepare()
+
+    def prepare(self) -> None:
+        """Make the conv kernels rounded to `self.dtype` and the head's
+        fused entry convs: at construction and after each load
+        (weights.load_tree)."""
+        for m in self.modules():
+            if hasattr(m, "derive"):
+                m.derive(self.dtype)
 
     def forward(self, img: torch.Tensor):
+        if img.dtype != self.dtype:
+            raise ValueError(f"YOLOv8 built for {self.dtype} activations, "
+                             f"got {img.dtype}")
         x = img.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
         x = self.b2(self.b1(self.b0(x)))
         p3 = self.b4(self.b3(x))

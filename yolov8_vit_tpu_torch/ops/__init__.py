@@ -1,6 +1,6 @@
 """Device ops of the two-stage pipeline (PyTorch port)."""
 from yolov8_vit_tpu_torch.ops.attention import (  # noqa: F401
-    fused_attention_block_i8,
+    flash_attention, fused_attention_block, fused_attention_block_i8,
 )
 from yolov8_vit_tpu_torch.ops.boxes import (  # noqa: F401
     box_area, inflate_boxes, unletterbox_boxes,
@@ -15,7 +15,8 @@ from yolov8_vit_tpu_torch.ops.nms import (  # noqa: F401
 )
 from yolov8_vit_tpu_torch.ops.preprocess import blob  # noqa: F401
 from yolov8_vit_tpu_torch.ops.quant import (  # noqa: F401
-    prequantize_tree, quant_mlp_ln_fused, quantize_act, quantize_weight,
+    prequantize_tree, quant_dense, quant_mlp_ln_fused, quantize_act,
+    quantize_weight,
 )
 from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
     interp_matrix, resize_bilinear_mm,
@@ -23,7 +24,8 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 
 # the wrappers that launch a CUDA kernel, each with its `launches` count
 KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
-                   fused_attention_block_i8)
+                   fused_attention_block_i8, fused_attention_block,
+                   flash_attention)
 
 
 def reset_launch_counts() -> None:

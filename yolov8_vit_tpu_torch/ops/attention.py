@@ -1,13 +1,20 @@
-"""The ViT's W8A8 attention sub-block: kernel D.
+"""The ViT's attention: kernels D, E and F.
 
-    out = x + proj_i8(SDPA(qkv_i8(LN1(x))))
+  D  fused_attention_block_i8   x + proj_i8(SDPA(qkv_i8(LN1(x))))
+     replaces yolov8_vit_tpu/ops/attention.py `_attn_block_kernel_i8`;
+  E  fused_attention_block      x + proj(SDPA(qkv(LN1(x)))), float weights,
+     replaces `_attn_block_kernel`;
+  F  flash_attention            softmax(q k^T / sqrt(d)) v on (B, T, H, D),
+     replaces `_attn_kernel`.
 
-On the card this is kernel D (csrc/attention.cu), which replaces
-yolov8_vit_tpu/ops/attention.py `_attn_block_kernel_i8`; its source note
-gives its bound on the H100 and its design.  The SDPA runs in the
-activation dtype as the TPU kernel's does: q * hd^-0.5 rounded to the
-dtype, scores and softmax in f32, probabilities rounded to the dtype, P.V
-accumulated in f32 and rounded to the dtype.
+On the card each is a chain around the key-tiled SDPA core of
+csrc/sdpa.cuh (csrc/attention.cu; the source notes give the bounds on the
+H100 and the design); CPU tensors run the plain versions below.  The SDPA
+rounds as the TPU kernels do.  D and E (`sdpa_heads_plain`): q * hd^-0.5
+rounded to the dtype, scores and softmax in f32, probabilities rounded to
+the dtype, P.V accumulated in f32 and rounded to the dtype.  F
+(`flash_attention_plain`): f32 scores times the f32 scale, probabilities
+rounded to v's dtype, output in q's dtype.
 """
 from __future__ import annotations
 
@@ -18,6 +25,17 @@ import torch
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
                                             quant_dense_pre)
+
+# head dims the CUDA SDPA core is built for
+SDPA_HEAD_DIMS = (16, 32, 64)
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor, p_dtype, out_dtype):
+    """s (B, H, Tq, Tk) f32 scores -> softmax rounded to p_dtype, P.V
+    accumulated in f32, (B, Tq, H, C) in out_dtype."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(p_dtype)
+    return torch.einsum("bhqk,bkhc->bqhc", p.float(), v.float()).to(out_dtype)
 
 
 def sdpa_heads_plain(qkv: torch.Tensor, heads: int,
@@ -35,12 +53,18 @@ def sdpa_heads_plain(qkv: torch.Tensor, heads: int,
     if t_real is not None and t_real < t:
         s = s.masked_fill(torch.arange(t, device=qkv.device) >= t_real,
                           float("-inf"))
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
-    o = torch.einsum("bhqk,bkhc->bqhc", p.float(), v.float()).to(dt)
-    return o.reshape(b, t, d)
+    return _softmax_pv(s, v, dt, dt).reshape(b, t, d)
 
 
+def _sdpa_ok(dtype, d: int, heads: int) -> None:
+    if dtype not in DTYPE_CODES or d % 8 or d % heads \
+            or d // heads not in SDPA_HEAD_DIMS:
+        raise ValueError(f"the SDPA core takes f32/bf16 with D a multiple "
+                         f"of 8 and head dims {SDPA_HEAD_DIMS}; got {dtype}, "
+                         f"D={d}, heads={heads}")
+
+
+# ---- kernel D ----------------------------------------------------------------
 def attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv, wproj_i8,
                         sproj, bproj, *, heads: int, ln_eps: float = 1e-6,
                         t_real: int | None = None) -> torch.Tensor:
@@ -75,17 +99,14 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
         return attn_block_i8_plain(xc, vecs[0], vecs[1], wqkv_i8, vecs[2],
                                    vecs[3], wproj_i8, vecs[4], vecs[5],
                                    heads=heads, ln_eps=ln_eps, t_real=t_real)
-    if x.dtype not in DTYPE_CODES or d % 16 or d % heads:
-        raise ValueError(f"kernel D takes f32/bf16 with D a multiple of 16 "
-                         f"and of heads; got {x.dtype}, D={d}")
-    hd = d // heads
-    smem = 4 * (t * (hd + 1) + t * hd + 8 * (hd + t))
-    if smem > 232448:
-        raise ValueError(f"sequence {t} x head dim {hd} exceeds kernel D's "
-                         f"shared memory")
+    _sdpa_ok(x.dtype, d, heads)
+    if d % 16:
+        raise ValueError(f"kernel D's int8 GEMM takes D a multiple of 16; "
+                         f"got {d}")
     m = b * t
     dev = x.device
     dt = x.dtype
+    hd = d // heads
     wqt = wqkv_i8.t().contiguous()
     wpt = wproj_i8.t().contiguous()
     hq = torch.empty(m, d, dtype=torch.int8, device=dev)
@@ -115,3 +136,125 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
 
 
 fused_attention_block_i8.launches = 0
+
+
+# ---- kernel E ----------------------------------------------------------------
+def fused_attention_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
+                                bproj, *, heads: int, ln_eps: float = 1e-6,
+                                t_real: int | None = None) -> torch.Tensor:
+    """Plain version of kernel E on x (B, T, D): LN in f32 rounded to the
+    dtype, qkv = f32-accumulated h.W + b rounded to the dtype, SDPA,
+    y = f32-accumulated o.Wp + bp, out = (x + y) rounded to the dtype."""
+    b, t, d = x.shape
+    dt = x.dtype
+    f32 = torch.float32
+    xx = x.reshape(b * t, d).to(f32)
+    h = layernorm_f32(xx, ln_scale.to(f32), ln_bias.to(f32), ln_eps).to(dt)
+    qkv = (h.to(f32) @ wqkv.to(dt).to(f32) + bqkv.to(f32)).to(dt)
+    o = sdpa_heads_plain(qkv.reshape(b, t, 3 * d), heads, t_real)
+    y = o.reshape(b * t, d).to(f32) @ wproj.to(dt).to(f32) + bproj.to(f32)
+    return (xx + y).reshape(b, t, d).to(dt)
+
+
+def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
+                          wproj, bproj, *, heads: int, ln_eps: float = 1e-6,
+                          t_real: int | None = None) -> torch.Tensor:
+    """x (B, T, D) f32 or bf16 -> x + proj(MHA(LN(x))), float weights.
+
+    wqkv (D, 3D) and wproj (D, D) in the JAX (in, out) layout; the kernel
+    reads them in x's dtype, so a caller that runs many forwards passes
+    them cast once (models/vit.py caches the cast per load).  Biases and
+    LN params are used in f32.  t_real < T masks key columns >= t_real.
+    CUDA tensors launch kernel E; CPU tensors run the plain version."""
+    b, t, d = x.shape
+    dt = x.dtype
+    f32 = torch.float32
+    xc = x.contiguous()
+    wq = wqkv.to(dt).contiguous()
+    wp = wproj.to(dt).contiguous()
+    vecs = [v.to(f32).contiguous() for v in (ln_scale, ln_bias, bqkv, bproj)]
+    if _build.on_cpu(xc, wq, wp, *vecs):
+        return fused_attention_block_plain(
+            xc, vecs[0], vecs[1], wq, vecs[2], wp, vecs[3], heads=heads,
+            ln_eps=ln_eps, t_real=t_real)
+    _sdpa_ok(dt, d, heads)
+    m = b * t
+    dev = x.device
+    hd = d // heads
+    h = torch.empty(m, d, dtype=dt, device=dev)
+    qkv = torch.empty(m, 3 * d, dtype=dt, device=dev)
+    heads_out = torch.empty(m, d, dtype=dt, device=dev)
+    out = torch.empty_like(xc)
+    scale = float(torch.tensor(hd ** -0.5, dtype=dt))
+    so = _build.lib("attention")
+    fn = so.launch_attn_block
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_float] + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    p = [v.data_ptr() for v in vecs]
+    rc = fn(xc.data_ptr(), DTYPE_CODES[dt], b, t, d, heads,
+            t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
+            wq.data_ptr(), p[2], wp.data_ptr(), p[3], h.data_ptr(),
+            qkv.data_ptr(), heads_out.data_ptr(), out.data_ptr(),
+            _build.stream_ptr())
+    fused_attention_block.launches += 1
+    _build.check(so, rc, "attn_block (kernel E)")
+    return out
+
+
+fused_attention_block.launches = 0
+
+
+# ---- kernel F ----------------------------------------------------------------
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel F: (B, T, H, D) -> (B, T, H, D) in q's
+    dtype."""
+    s = torch.einsum("bqhc,bkhc->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    return _softmax_pv(s, v, v.dtype, q.dtype)
+
+
+def _strided_ok(t: torch.Tensor, hd: int) -> bool:
+    """A (B, T, H, hd) view the kernel reads in place: unit stride in the
+    head dim, heads adjacent, 16-byte aligned rows."""
+    es = t.element_size()
+    return (t.stride(3) == 1 and t.stride(2) == hd
+            and t.data_ptr() % 16 == 0 and (t.stride(1) * es) % 16 == 0
+            and (t.stride(0) * es) % 16 == 0)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v over (B, T, H, D) inputs -> (B, T, H, D),
+    the JAX signature.  q, k and v may be strided views of one packed
+    (B, T, 3, H, D) qkv.  CUDA tensors launch kernel F; CPU tensors run
+    the plain version."""
+    if _build.on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v)
+    b, t, heads, hd = q.shape
+    if k.shape != q.shape or v.shape != q.shape \
+            or len({q.dtype, k.dtype, v.dtype}) != 1:
+        raise ValueError("kernel F takes q, k, v of one shape and dtype")
+    _sdpa_ok(q.dtype, heads * hd, heads)
+    q, k, v = (x if _strided_ok(x, hd) else x.contiguous()
+               for x in (q, k, v))
+    if not (q.stride()[:2] == k.stride()[:2] == v.stride()[:2]):
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    out = torch.empty(b, t, heads, hd, dtype=q.dtype, device=q.device)
+    so = _build.lib("attention")
+    fn = so.launch_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
+            b, t, heads, hd, q.stride(1), q.stride(0), hd ** -0.5,
+            out.data_ptr(), _build.stream_ptr())
+    flash_attention.launches += 1
+    _build.check(so, rc, "flash_attention (kernel F)")
+    return out
+
+
+flash_attention.launches = 0

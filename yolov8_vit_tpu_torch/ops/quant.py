@@ -75,6 +75,28 @@ def quant_dense_pre(x: torch.Tensor, w_i8: torch.Tensor,
     return int8_matmul(x_i8, w_i8) * s_x * w_scale[None, :] + bias[None, :]
 
 
+def quant_dense(x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x (..., in) @ float w (in, out) through int8, the weight quantized
+    per call (quant="dynamic"); f32-accumulated result in x's dtype.  The
+    exact int32 product is `int8_matmul` on the CPU and torch._int_mm on
+    the card (the JAX package computes it in XLA, outside its kernels)."""
+    w_i8, s_w = quantize_weight(w)
+    *lead, fin = x.shape
+    x_i8, s_x = quantize_act(x.reshape(-1, fin).to(torch.float32))
+    if x.is_cuda:
+        rows = x_i8.shape[0]
+        if rows <= 16:          # torch._int_mm takes more than 16 rows
+            x_i8 = torch.cat([x_i8, x_i8.new_zeros(17 - rows, fin)])
+        acc = torch._int_mm(x_i8, w_i8)[:rows].to(torch.float32)
+    else:
+        acc = int8_matmul(x_i8, w_i8)
+    y = acc * s_x * s_w[None, :]
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*lead, -1).to(x.dtype)
+
+
 def quant_mlp_ln_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
                        ln_eps: float = 1e-6) -> torch.Tensor:
     """Plain version of kernel C on (M, D) rows."""

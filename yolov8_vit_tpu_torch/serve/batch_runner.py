@@ -24,7 +24,7 @@ from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.config import (CLASS_NAMES, DetectConfig,
                                          detect_config_from_meta)
 from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
-from yolov8_vit_tpu_torch.models.vit import ViTSpec, require_ported
+from yolov8_vit_tpu_torch.models.vit import ViTSpec
 from yolov8_vit_tpu_torch.weights import (init_tree, load_pipeline_tree,
                                           load_tree, read_engine)
 
@@ -345,14 +345,14 @@ def make_runner(det_engine_path: str | None = None,
                 det_cfg: DetectConfig = DetectConfig(),
                 classify_budget: int = 4, dtype=torch.bfloat16,
                 rng_seed: int = 0, device="cuda") -> BatchRunner:
-    """Build a BatchRunner from engine dirs written by the JAX package's
-    `save_engine` (random params from `rng_seed` where absent).
+    """Build a BatchRunner from engine dirs written by `save_engine` (the
+    JAX package's or the port's; random params from `rng_seed` where
+    absent).  Without a classify engine the ViT is the default ViTSpec()
+    (ViT-B/8, float weights).
 
     det_engine_path may be a merged "two_stage" engine, whose pipeline
-    config and both trees are used directly.  The ViT must be a w8a engine:
-    any other spec (the no-engine default ViTSpec() included) needs the
-    bf16/f32 fused attention kernel, not yet ported, and raises
-    NotImplementedError."""
+    config and both trees are used directly.  Every ViT spec is served
+    with attn_impl="fused": kernel E, or kernel D for quant="w8a"."""
     device = _build.resolve_device(device)
     vit_spec = ViTSpec()
     det_tree = vit_tree = None
@@ -364,7 +364,6 @@ def make_runner(det_engine_path: str | None = None,
         if meta["kind"] == "two_stage":
             spec = dataclasses.replace(ViTSpec(**meta.get("vit_spec", {})),
                                        attn_impl="fused")
-            require_ported(spec)
             pipe = TwoStagePipeline(
                 det_cfg=det_cfg, vit_spec=spec,
                 num_classes=meta.get("num_classes", 5),
@@ -387,7 +386,6 @@ def make_runner(det_engine_path: str | None = None,
     # attn_impl is a runtime choice, not a weight property: serving takes
     # the fused attention path
     vit_spec = dataclasses.replace(vit_spec, attn_impl="fused")
-    require_ported(vit_spec)
     pipe = TwoStagePipeline(det_cfg=det_cfg, vit_spec=vit_spec,
                             num_classes=num_classes,
                             classify_budget=classify_budget, dtype=dtype,

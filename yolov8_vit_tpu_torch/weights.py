@@ -8,11 +8,15 @@ walk over `named_modules()`; the only layout change is HWIO <-> OIHW for
 the modules that list a leaf in `hwio_leaves`.
 
 Engine directories (`meta.json` + `params.msgpack`, as the JAX package's
-`runtime/engine.py::save_engine` writes them) are read with a small
-decoder of the msgpack subset flax emits, so the port needs neither
+`runtime/engine.py::save_engine` writes them) are read and written with a
+small codec of the msgpack subset flax emits, so the port needs neither
 `msgpack` nor `ml_dtypes`: ndarray leaves are msgpack extension type 1
-holding (shape, dtype name, raw bytes), and bfloat16 leaves are decoded
-from their uint16 bits straight into torch.bfloat16.
+holding (shape, dtype name, raw bytes), and bfloat16 leaves go from and
+to their uint16 bits as torch.bfloat16.
+
+Loading keeps a floating leaf's dtype (f32 or bf16): a module loaded from
+a bf16-stored engine computes from bf16 parameters, as the JAX package
+does with the same engine.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 from torch import nn
 
 from yolov8_vit_tpu_torch.ops.quant import (MLP_AND_ATTN_SUFFIXES,
-                                            prequantize_tree)
+                                            MLP_SUFFIXES, prequantize_tree)
 
 
 # ---- msgpack (the subset flax.serialization.to_bytes writes) -------------
@@ -129,6 +133,96 @@ def read_engine(path: str):
     return meta, tree
 
 
+def _pack(obj, out: list) -> None:
+    def head(fix: int, fix_max: int, tags: tuple, n: int) -> None:
+        if n <= fix_max:
+            out.append(struct.pack(">B", fix | n))
+            return
+        for tag, fmt in tags:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                out.append(struct.pack(">B" + fmt[1:], tag, n))
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    if isinstance(obj, dict):
+        head(0x80, 15, ((0xDE, ">H"), (0xDF, ">I")), len(obj))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        head(0x90, 15, ((0xDC, ">H"), (0xDD, ">I")), len(obj))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        head(0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")), len(raw))
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        head(0xC4, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")), len(obj))
+        out.append(obj)
+    elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        if obj <= 0x7F:
+            out.append(struct.pack(">B", obj))
+        else:
+            head(0, -1, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                         (0xCF, ">Q")), obj)
+    elif isinstance(obj, (torch.Tensor, np.ndarray)):
+        t = torch.as_tensor(obj).detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            name, raw = "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            arr = t.numpy()
+            name, raw = arr.dtype.name, arr.tobytes()
+        payload: list = []
+        _pack([list(t.shape), name, raw], payload)
+        data = b"".join(payload)
+        n = len(data)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(struct.pack(">Bb", fixext[n], 1))
+        else:
+            head(0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")), n)
+            out.append(struct.pack(">b", 1))
+        out.append(data)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def write_msgpack(tree) -> bytes:
+    """A tree of dicts with tensor / ndarray leaves -> the bytes
+    flax.serialization.to_bytes writes for it."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def save_engine(path: str, kind: str, params: dict, meta: dict,
+                param_dtype=None) -> str:
+    """Write an engine directory the JAX package's `Engine` (and the
+    port's) loads: meta.json with `kind`, params.msgpack.  As the JAX
+    `save_engine`: param_dtype="bfloat16" stores every floating leaf in
+    bf16 (integer leaves untouched) and records `param_store_dtype`."""
+    os.makedirs(path, exist_ok=True)
+    meta = dict(meta, kind=kind)
+    if param_dtype is not None:
+        if str(param_dtype).replace("torch.", "") != "bfloat16":
+            raise ValueError(f"param_dtype {param_dtype!r}: only bfloat16")
+        meta["param_store_dtype"] = "bfloat16"
+
+        def walk(node):          # sorted keys, as jax.tree.map returns
+            if isinstance(node, dict):
+                return {k: walk(node[k]) for k in sorted(node)}
+            t = as_tensor(node)
+            return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+        params = walk(params)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    with open(os.path.join(path, "params.msgpack"), "wb") as f:
+        f.write(write_msgpack(params))
+    return path
+
+
 # ---- tree <-> modules ----------------------------------------------------
 def as_tensor(leaf) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
@@ -148,15 +242,28 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+_KEPT_FLOAT = (torch.float32, torch.bfloat16)
+
+
+def _tree_buffers(mod: nn.Module):
+    """`mod`'s own parameter buffers; the derived (non-persistent) ones are
+    not in the tree."""
+    return [(n, b) for n, b in mod.named_buffers(recurse=False)
+            if n not in mod._non_persistent_buffers_set]
+
+
 def load_tree(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy a flax-layout tree into `module`'s buffers (cast to each
-    buffer's dtype, on its device).  Strict: a missing or extra leaf, or a
-    shape mismatch, raises."""
+    """Copy a flax-layout tree into `module`'s buffers, on their device,
+    then let the module make its derived buffers (`module.prepare()`,
+    where it has one).  A floating buffer takes the leaf's dtype when that
+    is f32 or bf16 (stored dtypes are kept, as JAX keeps them); other
+    leaves are cast to the buffer's dtype.  Strict: a missing or extra
+    leaf, or a shape mismatch, raises."""
     flat = {".".join(p): v for p, v in _leaves(tree)}
     used = set()
     for mod_name, mod in module.named_modules():
         hwio = getattr(mod, "hwio_leaves", ())
-        for name, buf in mod.named_buffers(recurse=False):
+        for name, buf in _tree_buffers(mod):
             key = f"{mod_name}.{name}" if mod_name else name
             if key not in flat:
                 raise KeyError(f"parameter tree lacks {key.replace('.', '/')}")
@@ -166,13 +273,19 @@ def load_tree(module: nn.Module, tree: dict) -> nn.Module:
             if tuple(t.shape) != tuple(buf.shape):
                 raise ValueError(f"{key}: tree shape {tuple(t.shape)} vs "
                                  f"module {tuple(buf.shape)}")
-            with torch.no_grad():
-                buf.copy_(t.to(buf.dtype))
+            if buf.is_floating_point() and t.dtype in _KEPT_FLOAT \
+                    and t.dtype != buf.dtype:
+                mod._buffers[name] = t.to(buf.device, copy=True)
+            else:
+                with torch.no_grad():
+                    buf.copy_(t.to(buf.dtype))
             used.add(key)
     extra = sorted(set(flat) - used)
     if extra:
         raise KeyError(f"parameter tree leaves the module does not have: "
                        f"{extra[:5]}")
+    if hasattr(module, "prepare"):
+        module.prepare()
     return module
 
 
@@ -181,7 +294,7 @@ def module_tree(module: nn.Module) -> dict:
     tree: dict = {}
     for mod_name, mod in module.named_modules():
         hwio = getattr(mod, "hwio_leaves", ())
-        for name, buf in mod.named_buffers(recurse=False):
+        for name, buf in _tree_buffers(mod):
             t = buf.detach().cpu().clone()
             if name in hwio:
                 t = t.permute(2, 3, 1, 0).contiguous()
@@ -209,10 +322,11 @@ def _reset(module: nn.Module, gen: torch.Generator) -> None:
 def init_tree(pipeline, seed: int = 0) -> dict:
     """Random two-stage parameters made on the CPU from `seed`, with flax's
     initializers (truncated lecun-normal kernels, zero biases, the detect
-    head's bias priors, N(0, .02) pos-embed).  For a w8a ViT the weights
-    are drawn in f32 and then pre-quantized (prequantize_tree with the MLP
-    and attention suffixes), as a real w8a engine is built: an int8 tree
-    initialized directly would hold all-zero kernels."""
+    head's bias priors, N(0, .02) pos-embed).  For a w8 / w8a ViT the
+    weights are drawn in f32 and then pre-quantized (prequantize_tree with
+    the MLP suffixes, and the attention ones for w8a), as a real engine is
+    built: an int8 tree initialized directly would hold all-zero kernels.
+    "none" and "dynamic" share the float layout."""
     from yolov8_vit_tpu_torch.models.vit import ViTClassifier
     from yolov8_vit_tpu_torch.models.yolov8 import YOLOv8
     gen = torch.Generator().manual_seed(seed)
@@ -225,6 +339,6 @@ def init_tree(pipeline, seed: int = 0) -> dict:
     vit_tree = module_tree(vit)
     if spec.quant == "w8a":
         vit_tree = prequantize_tree(vit_tree, MLP_AND_ATTN_SUFFIXES)
-    elif spec.quant != "none":
-        raise NotImplementedError(f"init for quant={spec.quant!r}")
+    elif spec.quant == "w8":
+        vit_tree = prequantize_tree(vit_tree, MLP_SUFFIXES)
     return {"det": {"params": module_tree(det)}, "vit": {"params": vit_tree}}
