@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels A-F from yolov8_vit_tpu_torch/csrc (nvcc, one
+  2. build the CUDA kernels A-J from yolov8_vit_tpu_torch/csrc (nvcc, one
      process per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: A and B (NMS) bit-exact on dense inputs with
@@ -41,8 +41,33 @@ Phases (any failure exits non-zero):
      5's YOLOv8-s forward (batch 32, TF32 over bf16-valued operands) held
      against the same conv in f64 (CONV_TOL), and the card's stem against
      the same weights and frames on the CPU (STEM_DIFF_SHARE);
-  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps.
-Each path of phases 5-8 is driven with every launch count set to 0 just
+  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps;
+  11. kernels G-J, the public functions that no entry point of the package
+     reaches, each held against its plain version and timed: G
+     (`quant_dense_fused`) at 64 x 197 rows with the four ViT-B (K, N)
+     pairs, bf16 and f32, bit for bit, its SiLU form at a detector 1x1
+     shape within SILU_TOL, and through a `QuantDensePre` layer; H
+     (`quant_mlp_fused`) on C's inputs within KERNEL_TOL; I
+     (`efficient_nms_scan(multi_label=False)`) bit for bit on phase 5's
+     decoded boxes and scores of 32 frames and on A's dense tie inputs; J
+     (`fused_b1b2`) on the stem output of phase 5's detector for its 32
+     frames with that detector's b1/b2 weights, within REGION_TOL of
+     `region_b1b2_plain`, beside the port's cuDNN modules on the same
+     input; then one drive of the four on that data with the counts reset
+     before and read after;
+  12. the inspection service at full width (YOLOv8-s at 640x640, ViT-B/16
+     w8a, bf16, the engine pair of phase 5's weights written by
+     `save_engine`): a file server thread on 127.0.0.1 serves the phase's
+     cover frames; `build_default_service(..., fused=True)` on the card
+     behind `make_http_server` answers `POST /` requests of 32 URLs each
+     (rows equal to the BatchRunner's called directly, detections found,
+     A-D launched and none of E-J), then the same frames through
+     fused=False (two `Engine`s under `infer.main`), one `/getImage`
+     (VOC XML written, counter bumped), one `/getConfig` round trip, and
+     `compare_fused_vs_host` held to count_match == images, mean IoU >
+     0.85 and CLASS_AGREE_SHARE (on the frames whose kept set does not
+     hinge on an f32 area tie, `_area_tie_frames`).
+Each path of phases 5-8, 11 and 12 is driven with every launch count set to 0 just
 before it and read just after: its kernels must have launched, and the
 kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
@@ -62,7 +87,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 # full JSON report and profiler table
 OUT_DIR = os.environ.get("CHIP_SMOKE_OUT", os.path.join(HERE, "chip_smoke_out"))
-BATCHES = 8                                    # timed frame batches
+BATCHES = 4                                    # timed frame batches
 # engine dirs the run writes (inside the ignored chip_smoke_out/, deleted
 # after each phase)
 ENGINE_DIR = os.path.join(HERE, "chip_smoke_out", "engines")
@@ -107,6 +132,33 @@ CONV_TOL = 2.0 ** -17
 # inherits b0's); operands rounded to TF32 would move far more
 STEM_DIFF_SHARE = 1e-3
 
+# G with SiLU: the card's expf against torch.sigmoid, a few f32 ulps of the
+# logistic, which the product with y carries over: 8 ulps at f32, and at
+# bf16 the one rounding may land on the other neighbour (one ulp, 2^-7)
+SILU_TOL = {"float32": {"atol": 1e-7, "rtol": 2.0 ** -20},
+            "bfloat16": {"atol": 1e-7, "rtol": 2.0 ** -7}}
+# J against its plain version: both round at the same five points, and
+# their f32 sums run in another order (mma tiles against cuDNN), so single
+# outputs land one bf16 ulp apart and a few flips pass through three
+# stacked stages: |d| <= 0.05 std(plain), the JAX package's own bar for
+# its kernel (tests/test_fused_region.py), plus one bf16 ulp of the output
+# (2^-7 |plain|): on a detector's own data the outputs reach many times
+# their std (0.024 here, outputs up to 0.4), and one ulp of such an output
+# is more than 0.05 std.  And mean |d| <= 0.005 std: a tenth of the first
+# bar, which a wrong tap, padding side or channel order (every output off
+# by a share of std) cannot meet
+REGION_TOL = {"max_std": 0.05, "ulp": 2.0 ** -7, "mean_std": 0.005}
+# compare_fused_vs_host on a random ViT head: tests/test_full_lifecycle.py
+# asks class_agree == detections on trained weights.  Here the classifier
+# is random, so its five logits sit close together, and the two routes
+# feed it crops of boxes that differ in the last float bits (bf16 against
+# f32 activations upstream would move them more; both run f32 here): a
+# matched pair may disagree where the top two logits are within the
+# noise of the W8A8 quantization.  Held: at least this share of the
+# matched pairs agree; every disagreeing pair's logit margin is printed
+# beside the logits' spread.
+CLASS_AGREE_SHARE = 0.8
+
 # the wrapper of each kernel row of the kernels JSON, and the path whose
 # launches it reports
 ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
@@ -116,7 +168,11 @@ ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
                "attn_block_i8_t785": ("fused_attention_block_i8",
                                       "vit_b8_w8a"),
                "attn_block": ("fused_attention_block", "vit_b8_float"),
-               "flash_attention": ("flash_attention", "engine_classify")}
+               "flash_attention": ("flash_attention", "engine_classify"),
+               "quant_dense": ("quant_dense_fused", "public_ops"),
+               "quant_mlp": ("quant_mlp_fused", "public_ops"),
+               "nms_argmax": ("nms_single_label", "public_ops"),
+               "fused_b1b2": ("fused_b1b2", "public_ops")}
 
 
 def _smi() -> str:
@@ -177,6 +233,8 @@ def _path_launches(ops, path: str, must, must_not) -> dict:
     reset them just before): each kernel of `must` launched, none of
     `must_not`."""
     counts = ops.launch_counts()
+    if path != "public_ops":           # G-J lie on no entry point's path
+        must_not = tuple(must_not) + G_J
     for name in must:
         if counts[name] == 0:
             raise AssertionError(f"{path}: kernel wrapper {name} never "
@@ -191,6 +249,8 @@ def _path_launches(ops, path: str, must, must_not) -> dict:
 A_B = ("efficient_nms_scan", "area_sorted_nms")
 C_D = ("quant_mlp_ln_fused", "fused_attention_block_i8")
 E_F = ("fused_attention_block", "flash_attention")
+G_J = ("quant_dense_fused", "quant_mlp_fused", "nms_single_label",
+       "fused_b1b2")
 
 
 def _nms_inputs(torch, b, n, c, seed):
@@ -288,9 +348,16 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
     w1, s1, b1 = wq(d, hid)
     w2, s2, b2 = wq(hid, d)
     args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
-    err = _close(torch, "C", ops.quant_mlp_ln_fused(*args),
+    # the transposed int8 weights made once, as models/vit.py passes them
+    wt = dict(w1_t=w1.t().contiguous(), w2_t=w2.t().contiguous())
+    err = _close(torch, "C", ops.quant_mlp_ln_fused(*args, **wt),
                  quant_mlp_ln_plain(*args), KERNEL_TOL)
-    k_ms = _time_ms(lambda: ops.quant_mlp_ln_fused(*args), 20)
+    if not torch.equal(ops.quant_mlp_ln_fused(*args, **wt),
+                       ops.quant_mlp_ln_fused(*args)):
+        raise AssertionError("kernel C: transposing per call and once "
+                             "differ")
+    k_ms = _time_ms(lambda: ops.quant_mlp_ln_fused(*args, **wt), 20)
+    c_percall_ms = _time_ms(lambda: ops.quant_mlp_ln_fused(*args), 20)
     p_ms = _time_ms(lambda: quant_mlp_ln_plain(*args), 3)
     ops_c = 2 * 2 * mlp_rows * d * hid
     nbytes = 2 * mlp_rows * d * 2 + 2 * d * hid + 4 * (3 * d + 2 * hid)
@@ -299,16 +366,25 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
                      source="yolov8_vit_tpu_torch/csrc/quant_mlp.cu",
                      replaces="yolov8_vit_tpu/ops/quant.py:240",
                      max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, library_ms=None))
+                     bound_by=by, library_ms=None,
+                     ms_transposing_per_call=c_percall_ms))
 
     xa = torch.randn(crops, t, d, generator=g).to(dev, torch.bfloat16)
     lns, lnb = ln()
     wqkv, sq, bq = wq(d, 3 * d)
     wp, sp, bp = wq(d, d)
     args = (xa, lns, lnb, wqkv, sq, bq, wp, sp, bp)
-    err = _close(torch, "D", ops.fused_attention_block_i8(*args, heads=12),
+    wt = dict(heads=12, wqkv_t=wqkv.t().contiguous(),
+              wproj_t=wp.t().contiguous())
+    err = _close(torch, "D", ops.fused_attention_block_i8(*args, **wt),
                  attn_block_i8_plain(*args, heads=12), KERNEL_TOL)
-    k_ms = _time_ms(lambda: ops.fused_attention_block_i8(*args, heads=12), 20)
+    if not torch.equal(ops.fused_attention_block_i8(*args, **wt),
+                       ops.fused_attention_block_i8(*args, heads=12)):
+        raise AssertionError("kernel D: transposing per call and once "
+                             "differ")
+    k_ms = _time_ms(lambda: ops.fused_attention_block_i8(*args, **wt), 20)
+    d_percall_ms = _time_ms(lambda: ops.fused_attention_block_i8(
+        *args, heads=12), 20)
     p_ms = _time_ms(lambda: attn_block_i8_plain(*args, heads=12), 3)
     m = crops * t
     int8_ops = 2 * m * d * 4 * d
@@ -320,7 +396,8 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
                      source="yolov8_vit_tpu_torch/csrc/attention.cu",
                      replaces="yolov8_vit_tpu/ops/attention.py:162",
                      max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, library_ms=None))
+                     bound_by=by, library_ms=None,
+                     ms_transposing_per_call=d_percall_ms))
     return rows
 
 
@@ -870,6 +947,462 @@ def profile_step(torch, runner, frames, path: str) -> dict:
             "top": [(k[:60], round(us / 2, 1), n // 2) for k, us, n in rows[:12]]}
 
 
+def _equal(torch, name, got, ref) -> None:
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        raise AssertionError(
+            f"kernel {name} != plain bit for bit: "
+            f"{int((got != ref).sum())} of {ref.numel()} entries differ, "
+            f"max {float((got.float() - ref.float()).abs().max())}")
+
+
+def public_ops_phase(torch, ops, pipe, tree: dict, frames,
+                     mlp_rows: int) -> tuple[list[dict], dict, dict]:
+    """Phase 11: kernels G-J against their plain versions, timed, then
+    driven once on this run's data with the launch counts reset before and
+    read after.  `pipe` and `tree` are phase 5's pipeline and fitted tree,
+    `frames` its first batch of 32 uint8 frames on the card.  Returns the
+    kernel rows, the launch counts of the drive, and a report."""
+    from yolov8_vit_tpu_torch.models.vit import QuantDensePre
+    from yolov8_vit_tpu_torch.ops import blob, dfl_decode, letterbox_fast, \
+        make_anchors
+    from yolov8_vit_tpu_torch.models.yolov8 import flatten_head_outputs
+    from yolov8_vit_tpu_torch.ops.fused_region import (region_b1b2_plain,
+                                                       region_params)
+    from yolov8_vit_tpu_torch.ops.nms import (nms_argmax_plain,
+                                              single_label_candidates)
+    from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain,
+                                                quant_mlp_plain,
+                                                quantize_weight)
+    from yolov8_vit_tpu_torch.weights import load_tree
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, rep = [], {}
+    g = torch.Generator().manual_seed(11)
+    d, hid = 768, 3072
+
+    def wq(fin, fout):
+        q, s_ = quantize_weight(torch.randn(fin, fout, generator=g)
+                                * fin ** -0.5)
+        return q.to(dev), s_.to(dev), (0.02 * torch.randn(fout, generator=g)
+                                       ).to(dev)
+
+    # ---- G: the four ViT-B dense shapes at 64 x 197 rows ------------------
+    by_shape = {}
+    for k, n in ((d, 3 * d), (d, d), (d, hid), (hid, d)):
+        w, sw, b = wq(k, n)
+        wt = w.t().contiguous()
+        x32 = torch.randn(mlp_rows, k, generator=g).to(dev)
+        for dt in (bf16, f32):
+            x = x32.to(dt)
+            _equal(torch, f"G ({k}, {n}) {dt}",
+                   ops.quant_dense_fused(x, w, sw, b, w_t=wt),
+                   quant_dense_plain(x, w, sw, b))
+        x = x32.to(bf16)
+        k_ms = _time_ms(lambda: ops.quant_dense_fused(x, w, sw, b, w_t=wt),
+                        20)
+        p_ms = _time_ms(lambda: quant_dense_plain(x, w, sw, b), 3)
+        nbytes = mlp_rows * (k + n) * 2 + k * n + 8 * n
+        bound, by = _bound_ms(nbytes,
+                              2 * mlp_rows * k * n / PEAK_INT8_OPS * 1e3)
+        by_shape[f"{k}x{n}"] = {"ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": bound, "bound_by": by}
+    main = by_shape[f"{d}x{hid}"]
+    # SiLU form at a detector 1x1 shape: YOLOv8-s b2.cv1, 32 frames
+    m_det, c_det = 32 * 160 * 160, 64
+    w, sw, b = wq(c_det, c_det)
+    silu_err = {}
+    for dt in (bf16, f32):
+        x = torch.randn(m_det, c_det, generator=g).to(dev, dt)
+        silu_err[str(dt)] = _close(
+            torch, f"G silu {dt}", ops.quant_dense_fused(x, w, sw, b, True),
+            quant_dense_plain(x, w, sw, b, True),
+            SILU_TOL[str(dt).replace("torch.", "")])
+    x = torch.randn(m_det, c_det, generator=g).to(dev, bf16)
+    nbytes = m_det * 2 * c_det * 2 + c_det * c_det + 8 * c_det
+    bound, by = _bound_ms(nbytes,
+                          2 * m_det * c_det * c_det / PEAK_INT8_OPS * 1e3)
+    by_shape["silu_819200x64x64"] = {
+        "ms": _time_ms(lambda: ops.quant_dense_fused(x, w, sw, b, True), 10),
+        "plain_ms": _time_ms(lambda: quant_dense_plain(x, w, sw, b, True), 3),
+        "bound_ms": bound, "bound_by": by}
+    # through the layer, loaded from a flax-layout tree
+    w, sw, b = wq(d, 3 * d)
+    layer = load_tree(QuantDensePre(d, 3 * d, dtype=bf16).to(dev),
+                      {"kernel_i8": w, "w_scale": sw, "bias": b})
+    x_layer = torch.randn(mlp_rows, d, generator=g).to(dev, bf16)
+    _equal(torch, "G through QuantDensePre", layer(x_layer),
+           quant_dense_plain(x_layer, w, sw, b))
+    rows.append(dict(name="quant_dense", route="cuda",
+                     source="yolov8_vit_tpu_torch/csrc/quant_mlp.cu",
+                     replaces="yolov8_vit_tpu/ops/quant.py:90",
+                     max_abs_err=0.0, ms=main["ms"],
+                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], library_ms=None,
+                     shape=f"({mlp_rows}, {d}) x ({d}, {hid}) bf16",
+                     by_shape=by_shape, silu_max_abs_err=silu_err))
+
+    # ---- H on inputs made as C's are (check_kernels) ----------------------
+    xh = torch.randn(mlp_rows, d, generator=g).to(dev, bf16)
+    w1, s1, b1 = wq(d, hid)
+    w2, s2, b2 = wq(hid, d)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    args = (xh, xh, w1, s1, b1, w2, s2, b2)
+    err = _close(torch, "H", ops.quant_mlp_fused(*args, w1_t=w1t, w2_t=w2t),
+                 quant_mlp_plain(*args), KERNEL_TOL)
+    _close(torch, "H f32", ops.quant_mlp_fused(
+        *(a.float() if a.dtype == bf16 else a for a in args)),
+        quant_mlp_plain(*(a.float() if a.dtype == bf16 else a
+                          for a in args)), KERNEL_TOL)
+    k_ms = _time_ms(lambda: ops.quant_mlp_fused(*args, w1_t=w1t, w2_t=w2t),
+                    20)
+    p_ms = _time_ms(lambda: quant_mlp_plain(*args), 3)
+    nbytes = 3 * mlp_rows * d * 2 + 2 * d * hid + 4 * (2 * d + 2 * hid)
+    bound, by = _bound_ms(nbytes,
+                          2 * 2 * mlp_rows * d * hid / PEAK_INT8_OPS * 1e3)
+    rows.append(dict(name="quant_mlp", route="cuda",
+                     source="yolov8_vit_tpu_torch/csrc/quant_mlp.cu",
+                     replaces="yolov8_vit_tpu/ops/quant.py:149",
+                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                     bound_by=by, library_ms=None))
+
+    # ---- I: phase 5's decoded boxes and scores, and A's tie inputs ---------
+    cfg = pipe.det_cfg
+    with torch.no_grad():
+        lb, _, _ = letterbox_fast(frames, cfg.input_size, dtype=pipe.dtype)
+        det_in = blob(lb).to(pipe.dtype)
+        box_dist, cls_logits = flatten_head_outputs(pipe.det(det_in))
+        anchors, stride = make_anchors(cfg.input_size, cfg.strides,
+                                       device=dev)
+        real_boxes = dfl_decode(box_dist.to(f32), anchors, stride,
+                                cfg.reg_max).contiguous()
+        real_scores = torch.sigmoid(cls_logits.to(f32)).contiguous()
+    tie_boxes, tie_scores = (t.to(dev)
+                             for t in _nms_inputs(torch, 32, 8400, 5, 0))
+    i_rep = {}
+    for label, bx, sc in (("run", real_boxes, real_scores),
+                          ("ties", tie_boxes, tie_scores)):
+        got = ops.efficient_nms_scan(bx, sc, multi_label=False)
+        cand = single_label_candidates(bx, sc)
+        ref = nms_argmax_plain(bx, *cand, 0.65, 0.25, 100)
+        for name, a, r in zip(("num_dets", "boxes", "scores", "labels"),
+                              got, ref):
+            _equal(torch, f"I ({label}) {name}", a, r)
+        picks = int(got[0].sum())
+        k_ms = _time_ms(lambda: ops.efficient_nms_scan(
+            bx, sc, multi_label=False), 20)
+        p_ms = _time_ms(lambda: nms_argmax_plain(bx, *cand, 0.65, 0.25, 100),
+                        2)
+        nbytes = (bx.numel() + sc.numel()) * 4 + 32 * 100 * 6 * 4 + 32 * 4
+        # the best class of each anchor once, then per pick a reduction
+        # over n scores and ~20 flops of shifted IoU per anchor
+        op_ms = (sc.numel() + picks * 8400 * 21) / PEAK_F32_FLOPS * 1e3
+        bound, by = _bound_ms(nbytes, op_ms)
+        i_rep[label] = {"picks": picks, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": bound, "bound_by": by}
+    if i_rep["run"]["picks"] == 0:
+        raise AssertionError("kernel I kept nothing on the run's frames")
+    rows.append(dict(name="nms_argmax", route="cuda",
+                     source="yolov8_vit_tpu_torch/csrc/nms.cu",
+                     replaces="yolov8_vit_tpu/ops/nms.py:74",
+                     max_abs_err=0.0, ms=i_rep["ties"]["ms"],
+                     plain_ms=i_rep["ties"]["plain_ms"],
+                     bound_ms=i_rep["ties"]["bound_ms"],
+                     bound_by=i_rep["ties"]["bound_by"], library_ms=None,
+                     by_input=i_rep))
+
+    # ---- J: the detector's own stem output and b1 / b2 weights -------------
+    det = pipe.det
+    with torch.no_grad():
+        stem_nchw = det.b0(det_in.permute(0, 3, 1, 2))
+        stem = stem_nchw.permute(0, 2, 3, 1).contiguous()
+        params = region_params(tree["det"]["params"])
+        got = ops.fused_b1b2(stem, params)
+        ref = region_b1b2_plain(stem, params)
+        lib = det.b2(det.b1(stem_nchw)).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        dj = (got.float() - ref.float()).abs()
+        std = float(ref.float().std())
+        beyond = int((dj > REGION_TOL["max_std"] * std
+                      + REGION_TOL["ulp"] * ref.float().abs()).sum())
+        j_rep = {"shape_in": list(stem.shape), "shape_out": list(got.shape),
+                 "std_plain": std, "max_abs_err": float(dj.max()),
+                 "mean_abs_err": float(dj.mean()), "beyond_bar": beyond,
+                 "max_abs_plain": float(ref.float().abs().max()),
+                 "max_abs_diff_vs_modules": float(
+                     (got.float() - lib.float()).abs().max())}
+        if tuple(got.shape) != (32, 160, 160, 64) \
+                or not bool(torch.isfinite(got.float()).all()) \
+                or beyond \
+                or j_rep["mean_abs_err"] > REGION_TOL["mean_std"] * std:
+            raise AssertionError(f"kernel J != plain beyond {REGION_TOL}: "
+                                 f"{j_rep}")
+        del dj, ref, lib
+        k_ms = _time_ms(lambda: ops.fused_b1b2(stem, params), 10)
+        p_ms = _time_ms(lambda: region_b1b2_plain(stem, params), 3)
+        lib_ms = _time_ms(lambda: det.b2(det.b1(stem_nchw)), 10)
+    c1, c2 = stem.shape[-1], got.shape[-1]
+    c = c2 // 2
+    px = got.shape[0] * got.shape[1] * got.shape[2]
+    flops = 2 * px * (9 * c1 * c2 + c2 * c2 + 2 * 9 * c * c + 3 * c * c2)
+    w_elems = 9 * c1 * c2 + c2 * c2 + 2 * 9 * c * c + 3 * c * c2
+    nbytes = (stem.numel() + got.numel() + w_elems) * 2 + 4 * (3 * c2 + 2 * c)
+    bound, by = _bound_ms(nbytes, flops / PEAK_BF16_FLOPS * 1e3)
+    rows.append(dict(name="fused_b1b2", route="cuda",
+                     source="yolov8_vit_tpu_torch/csrc/fused_region.cu",
+                     replaces="yolov8_vit_tpu/ops/fused_region.py:132",
+                     max_abs_err=j_rep["max_abs_err"], ms=k_ms, plain_ms=p_ms,
+                     bound_ms=bound, bound_by=by, library_ms=lib_ms))
+    rep.update(G=by_shape, G_silu_max_abs_err=silu_err, I=i_rep, J=j_rep)
+
+    # ---- the drive: each of the four once, on this run's data --------------
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y = layer(x_layer)
+        z = ops.quant_mlp_fused(*args, w1_t=w1t, w2_t=w2t)
+        nd = ops.efficient_nms_scan(real_boxes, real_scores,
+                                    multi_label=False)
+        r = ops.fused_b1b2(stem, params)
+    torch.cuda.synchronize()
+    launches = _path_launches(ops, "public_ops", G_J, A_B + C_D + E_F)
+    for name, t in (("G", y), ("H", z), ("J", r)):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"public ops drive: {name} not finite")
+    if int(nd[0].sum()) != i_rep["run"]["picks"]:
+        raise AssertionError("public ops drive: I's picks changed")
+    return rows, launches, rep
+
+
+def _http_json(url: str, body=None, timeout: float = 300.0):
+    """GET, or POST `body` as JSON; the decoded JSON answer."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _area_tie_frames(np, infer, imageio, det_eng, paths) -> list[str]:
+    """Frames on which the host route's area-sorted NMS depends on float
+    width.  The fitted head pins every box to one size, so the candidates'
+    areas tie exactly in f32 (the device's kernel B: ties to the lowest
+    row) and differ in their last digits in f64 (serve/infer.py, as the
+    JAX package's host route computes them): where the greedy order then
+    decides the kept set, the two routes rightly differ.  Returns the
+    names of the frames whose kept count differs between the two widths
+    on the host."""
+    out = []
+    cfg = det_eng.det_cfg
+    for path in paths:
+        rgb = imageio.imread_rgb(path)
+        x = rgb.transpose(2, 0, 1)[None].astype(np.float32) / 255.0
+        num, bb, sc, _ = (infer._np(t) for t in det_eng(x))
+        n = int(num.reshape(-1)[0])
+        bb = bb.reshape(-1, 4)[:n].clip(0, [rgb.shape[1], rgb.shape[0]] * 2)
+        sc = sc.reshape(-1)[:n]
+        keep = sc > cfg.conf_second
+        wide = infer._area_nms_host(bb[keep].astype(np.float64), sc[keep],
+                                    cfg.custom_nms_iou)
+        narrow = infer._area_nms_host(bb[keep].astype(np.float32), sc[keep],
+                                      cfg.custom_nms_iou)
+        if len(wide) != len(narrow):
+            out.append(os.path.basename(path))
+    return out
+
+
+def service_phase(torch, ops, tree: dict, vit_spec, smi: str,
+                  requests: int = 3) -> dict:
+    """Phase 12: the inspection service over HTTP on 127.0.0.1, both
+    routes, on the engine pair of phase 5's weights (`tree`, `vit_spec`)."""
+    import functools
+    import http.server
+    import threading
+    import numpy as np
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.runtime.accuracy import compare_fused_vs_host
+    from yolov8_vit_tpu_torch.runtime.engine import Engine
+    from yolov8_vit_tpu_torch.serve import imageio, infer
+    from yolov8_vit_tpu_torch.serve.app import build_default_service
+    from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
+    from yolov8_vit_tpu_torch.utils.densify import make_cover_scenes
+    from yolov8_vit_tpu_torch.weights import save_engine
+    root = os.path.join(ENGINE_DIR, "service")
+    shutil.rmtree(root, ignore_errors=True)
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    out: dict = {"card": smi}
+    servers = []
+
+    def serve(httpd):
+        servers.append(httpd)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    try:
+        det_dir = save_engine(
+            os.path.join(root, "detect"), "detect", tree["det"],
+            {"detect_cfg": dataclasses.asdict(DetectConfig())})
+        cls_dir = save_engine(
+            os.path.join(root, "classify"), "classify", tree["vit"],
+            {"vit_spec": dataclasses.asdict(vit_spec), "num_classes": 5})
+        imgs, covers = make_cover_scenes(np.random.default_rng(12), BATCH,
+                                         (640, 640), lam=1.5)
+        names = [f"cam{i:02d}.bmp" for i in range(BATCH)]
+        for name, img in zip(names, imgs):
+            imageio.imwrite(os.path.join(frames_dir, name),
+                            imageio.bgr2rgb(img))
+        paths = [os.path.join(frames_dir, n) for n in names]
+        files = serve(http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Quiet, directory=frames_dir)))
+        body = {"urls": [{f"img{i}": f"{files}/{n}"}
+                         for i, n in enumerate(names)]}
+
+        # ---- fused route ---------------------------------------------------
+        t0 = time.perf_counter()
+        svc = build_default_service(os.path.join(root, "work_fused"),
+                                    det_dir, cls_dir, enable_retrain=False,
+                                    fused=True)
+        base = serve(svc.make_http_server("127.0.0.1", 0))
+        out["fused_build_s"] = time.perf_counter() - t0
+        _http_json(base + "/", body)                          # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        secs, rows = [], None
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            rows = _http_json(base + "/", body)
+            secs.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out["fused_launches"] = _path_launches(ops, "service_fused",
+                                               A_B + C_D, E_F)
+        br = make_runner(det_dir, cls_dir, device="cuda")
+        prof: dict = {}
+        want = br.flatten(paths, br.run_paths(paths, profile=prof))
+        if rows != [list(r) for r in want]:
+            raise AssertionError("service (fused): POST / rows differ from "
+                                 "BatchRunner.flatten(run_paths) called "
+                                 "directly")
+        if not rows or {r[0] for r in rows} - set(names):
+            raise AssertionError(f"service (fused): {len(rows)} rows")
+        out.update(fused_request_s=secs, fused_rows=len(rows),
+                   true_covers=sum(len(c) for c in covers),
+                   direct_run_paths_profile_ms=prof)
+        # what the host spends outside the fused steps, one request's worth
+        t0 = time.perf_counter()
+        raw = [open(p_, "rb").read() for p_ in paths]
+        t1 = time.perf_counter()
+        for r_ in raw:
+            imageio.imdecode(r_)
+        t2 = time.perf_counter()
+        imageio.imwrite(os.path.join(root, "probe.bmp"),
+                        imageio.imdecode(raw[0]))
+        out["host_ms"] = {"read_32_files": (t1 - t0) * 1e3,
+                          "decode_32_bmp": (t2 - t1) * 1e3,
+                          "encode_1_bmp": (time.perf_counter() - t2) * 1e3}
+        del br
+
+        # /getImage and /getConfig round trips
+        t0 = time.perf_counter()
+        ans = _http_json(base + "/getImage", {
+            "imageUrl": f"{files}/{names[0]}",
+            "objects": [{"sort": "broke", "xmin": 10, "ymin": 20,
+                         "xmax": 110, "ymax": 130}]})
+        out["get_image_s"] = time.perf_counter() - t0
+        xml = os.path.join(root, "work_fused", "train", "new",
+                           names[0].replace(".bmp", ".xml"))
+        if "url" not in ans or not os.path.exists(xml) \
+                or "<sort>1</sort>" not in open(xml).read():
+            raise AssertionError(f"/getImage: {ans}, xml at {xml} missing "
+                                 f"or wrong")
+        for _ in range(200):              # the counter bumps on a thread
+            if _http_json(base + "/getConfig")["num"] == 1:
+                break
+            time.sleep(0.05)
+        cfg = _http_json(base + "/getConfig")
+        if cfg["num"] != 1:
+            raise AssertionError(f"/getImage did not bump the counter: {cfg}")
+        if _http_json(base + "/getConfig", {"standard": 7}) != \
+                {"state": "修改成功"} \
+                or _http_json(base + "/getConfig")["standard"] != 7:
+            raise AssertionError("/getConfig round trip failed")
+        out["config_after"] = _http_json(base + "/getConfig")
+
+        # ---- host route ----------------------------------------------------
+        t0 = time.perf_counter()
+        host = build_default_service(os.path.join(root, "work_host"),
+                                     det_dir, cls_dir, enable_retrain=False,
+                                     fused=False)
+        hbase = serve(host.make_http_server("127.0.0.1", 0))
+        out["host_build_s"] = time.perf_counter() - t0
+        _http_json(hbase + "/", {"urls": body["urls"][:2]})   # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        host_rows = _http_json(hbase + "/", body)
+        out["host_request_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["host_launches"] = _path_launches(
+            ops, "service_host", ("efficient_nms_scan",) + C_D,
+            ("area_sorted_nms",) + E_F)
+        if not host_rows:
+            raise AssertionError("service (host): no detections")
+        out["host_rows"] = len(host_rows)
+
+        # ---- the two routes against each other -----------------------------
+        det_eng = Engine(det_dir, device="cuda")
+        det_eng.set_desired(["num_dets", "bboxes", "scores", "labels"])
+        ties = _area_tie_frames(np, infer, imageio, det_eng, paths)
+        del det_eng
+        out["area_tie_frames"] = ties
+        cmp_paths = [p_ for p_ in paths if os.path.basename(p_) not in ties]
+        if len(cmp_paths) < 0.75 * len(paths):
+            raise AssertionError(f"fused vs host: {len(ties)} of "
+                                 f"{len(paths)} frames hinge on area ties")
+        disagree: list = []
+        t0 = time.perf_counter()
+        acc = compare_fused_vs_host(tree["det"], tree["vit"], DetectConfig(),
+                                    vit_spec, cmp_paths, budget=8,
+                                    disagreements=disagree)
+        out["compare_s"] = time.perf_counter() - t0
+        out["compare_fused_vs_host"] = acc
+        print(f"compare_fused_vs_host ({len(cmp_paths)} frames; left out, "
+              f"kept set hinges on an f32 area tie: {ties}): "
+              f"{json.dumps(acc)}", flush=True)
+        # the disagreeing pairs' logit margins, on the host route's crop
+        cls_eng = Engine(cls_dir, device="cuda")
+        margins = []
+        for name, fbox, fcls, hcls in disagree:
+            rgb = imageio.imread_rgb(os.path.join(frames_dir, name))
+            crop = infer._crop_nearest_224(
+                rgb, infer._inflate(np.round(fbox), rgb.shape[1],
+                                    rgb.shape[0]))
+            x = crop.astype(np.float32)[None] / 255.0 * 2.0 - 1.0
+            lg = cls_eng(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+            lg = lg.float().cpu().numpy()[0]
+            top = np.sort(lg)[::-1]
+            margins.append({"frame": name, "fused": fcls, "host": hcls,
+                            "margin": float(top[0] - top[1]),
+                            "spread": float(top[0] - top[-1])})
+        out["class_disagreements"] = margins
+        print(f"class disagreements (logit margin, spread): "
+              f"{json.dumps(margins)}", flush=True)
+        if acc["count_match"] != acc["images"] or acc["mean_iou"] <= 0.85 \
+                or acc["detections"] == 0 \
+                or acc["class_agree"] < CLASS_AGREE_SHARE * acc["matched"]:
+            raise AssertionError(f"fused vs host: {acc}, {margins}")
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -908,7 +1441,10 @@ def main() -> int:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms {r['library_ms']} "
-              f"max_abs_err {r['max_abs_err']}", flush=True)
+              f"max_abs_err {r['max_abs_err']}"
+              + (f" (transposing per call: "
+                 f"{r['ms_transposing_per_call']:.4f} ms)"
+                 if "ms_transposing_per_call" in r else ""), flush=True)
     print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
           f"{json.dumps(bf16_stats)}")
@@ -946,6 +1482,26 @@ def main() -> int:
     _report(f"detector convs ({time.perf_counter() - t0:.1f} s)",
             {k: v for k, v in conv.items() if k != "per_conv"})
 
+    t0 = time.perf_counter()
+    gj_rows, gj_launches, gj = public_ops_phase(
+        torch, ops, b16_runner.pipeline, b16_tree,
+        paths["vit_b16_w8a"]["frames"], mlp_rows=64 * 197)
+    rows += gj_rows
+    paths["public_ops"] = {"launches": gj_launches}
+    for r in gj_rows:
+        print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}) library_ms {r['library_ms']} "
+              f"max_abs_err {r['max_abs_err']}", flush=True)
+    _report(f"kernels G-J ({time.perf_counter() - t0:.1f} s)", gj)
+    t0 = time.perf_counter()
+    service = service_phase(torch, ops, b16_tree,
+                            b16_runner.pipeline.vit_spec, smi)
+    print(f"service on {smi}: fused POST / of {BATCH} URLs "
+          f"{service['fused_request_s']} s, host route "
+          f"{service['host_request_s']} s", flush=True)
+    _report(f"service ({time.perf_counter() - t0:.1f} s)", service)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
     for name, runner in (("vit_b16_w8a", b16_runner),
@@ -963,13 +1519,16 @@ def main() -> int:
     for r in rows:
         wrapper, path = ROW_WRAPPER[r["name"]]
         r = dict(r, launches=paths[path]["launches"][wrapper])
-        r.pop("picks", None)
+        for extra in ("picks", "by_shape", "by_input", "shape",
+                      "silu_max_abs_err", "ms_transposing_per_call"):
+            r.pop(extra, None)
         kernels.append(r)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build_s": build_s, "kernels": kernels,
                    "f32_checks": f32_err, "bf16_checks": bf16_stats,
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
+                   "public_ops": gj, "service": service,
                    "profile": prof,
                    "total_s": time.perf_counter() - t_all}, f, indent=1)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)

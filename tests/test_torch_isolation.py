@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of `yolov8_vit_tpu_torch`, and
 not chip_smoke.py, imports jax, flax or the JAX package, or a package the
-GPU machine lacks (msgpack, ml_dtypes, cv2); PIL only inside functions
+GPU machine lacks (msgpack, ml_dtypes, cv2, requests); PIL only inside functions
 (host decode).  Checked statically with `ast`, and by importing every
 module in a subprocess whose sys.modules poisons those names."""
 import ast
@@ -13,7 +13,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "yolov8_vit_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "yolov8_vit_tpu", "msgpack",
-             "ml_dtypes", "cv2", "optax", "orbax"}
+             "ml_dtypes", "cv2", "optax", "orbax", "requests"}
 
 
 def _port_files():

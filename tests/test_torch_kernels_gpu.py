@@ -1,4 +1,4 @@
-"""PyTorch port, the CUDA kernels A-F against their plain versions on the
+"""PyTorch port, the CUDA kernels A-J against their plain versions on the
 card, at small shapes and at ViT-B/8's 785 tokens.  Marked `cuda`: they skip where no CUDA device is
 present (a CUDA kernel has no interpret mode).  On the GPU machine, which
 has no jax for tests/conftest.py, run them with
@@ -11,8 +11,13 @@ from yolov8_vit_tpu_torch import ops
 from yolov8_vit_tpu_torch.ops.attention import (attn_block_i8_plain,
                                                 flash_attention_plain,
                                                 fused_attention_block_plain)
-from yolov8_vit_tpu_torch.ops.nms import mask_scan_plain, nms_argmax_ml_plain
-from yolov8_vit_tpu_torch.ops.quant import quant_mlp_ln_plain, quantize_weight
+from yolov8_vit_tpu_torch.ops.fused_region import region_b1b2_plain
+from yolov8_vit_tpu_torch.ops.nms import (mask_scan_plain, nms_argmax_ml_plain,
+                                          nms_argmax_plain,
+                                          single_label_candidates)
+from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain, quant_mlp_plain,
+                                            quant_mlp_ln_plain,
+                                            quantize_weight)
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +156,104 @@ def test_kernel_f_matches_plain(dev, dtype, shape):
     got = ops.flash_attention(*qkv.unbind(2))
     _close(got, flash_attention_plain(*qkv.unbind(2)), dtype,
            f32_ref=flash_attention_plain(*qkv.float().unbind(2)))
+
+
+# ---- G-J ---------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(300, 96, 64), (77, 768, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_g_matches_plain_bit_for_bit(dev, dtype, shape):
+    """Without SiLU: exact int8 sums and three uncontracted f32 operations,
+    so the kernel equals its plain version exactly, also through a
+    transposed weight made ahead."""
+    m, k, n = shape
+    g = _gen(6)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    w, s, b = _w(g, k, n, dev)
+    ref = quant_dense_plain(x, w, s, b)
+    got = ops.quant_dense_fused(x, w, s, b)
+    assert torch.equal(got, ref), (int((got != ref).sum()),
+                                   float((got.float() - ref.float())
+                                         .abs().max()))
+    assert torch.equal(ops.quant_dense_fused(x, w, s, b,
+                                             w_t=w.t().contiguous()), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_g_silu_matches_plain(dev, dtype):
+    """With SiLU the card's expf and torch.sigmoid differ by a few f32
+    ulps: 4 ulps (2^-21 relative) at f32, one output ulp at bf16."""
+    g = _gen(7)
+    x = torch.randn(500, 128, generator=g).to(dev, dtype)
+    w, s, b = _w(g, 128, 256, dev)
+    got = ops.quant_dense_fused(x, w, s, b, silu=True).float()
+    ref = quant_dense_plain(x, w, s, b, silu=True).float()
+    rtol = 2.0 ** -21 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got - ref).abs() <= 1e-7 + rtol * ref.abs()).all()), \
+        float((got - ref).abs().max())
+
+
+def test_kernel_g_refuses_odd_k(dev):
+    g = _gen(8)
+    x = torch.randn(8, 40, generator=g).to(dev)
+    w, s, b = _w(g, 40, 16, dev)
+    with pytest.raises(ValueError):
+        ops.quant_dense_fused(x, w, s, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_h_matches_plain(dev, dtype):
+    g = _gen(9)
+    h = torch.randn(300, 128, generator=g).to(dev, dtype)
+    res = torch.randn(300, 128, generator=g).to(dev, dtype)
+    args = (h, res, *_w(g, 128, 512, dev), *_w(g, 512, 128, dev))
+    _close(ops.quant_mlp_fused(*args), quant_mlp_plain(*args), dtype,
+           int8=True)
+
+
+def _single_label_inputs(g, b, n):
+    ctr = torch.randn(b, n, 2, generator=g) * 120 + 150
+    wh = torch.rand(b, n, 2, generator=g) * 100 + 10
+    boxes = torch.round(torch.cat([ctr - wh / 2, ctr + wh / 2], -1) * 2) / 2
+    scores = torch.round(torch.rand(b, n, 5, generator=g) * 16) / 16
+    return boxes, scores
+
+
+def test_kernel_i_matches_plain(dev):
+    boxes, scores = (t.to(dev) for t in _single_label_inputs(_gen(10), 4,
+                                                            3000))
+    scores[1] = 0.0                                    # an empty image
+    got = ops.efficient_nms_scan(boxes, scores, multi_label=False)
+    ref = nms_argmax_plain(boxes, *single_label_candidates(boxes, scores),
+                           0.65, 0.25, 100)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got[0][1]) == 0 and int(got[0][0]) > 10
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 80, 16, 32), (1, 34, 30, 32, 64)])
+def test_kernel_j_matches_plain(dev, shape):
+    """bf16 reassociation class: |d| <= 0.05 std(ref) + one bf16 ulp of
+    the output, mean |d| <= 0.005 std(ref) (chip_smoke.py's REGION_TOL
+    states why).  The second shape has ragged tiles (15 x 17 outputs)."""
+    b, h, w, c1, c2 = shape
+    c = c2 // 2
+    g = _gen(11)
+
+    def conv(kh, cin, cout):
+        return {"conv": {
+            "kernel": (torch.randn(kh, kh, cin, cout, generator=g) * 0.08)
+            .to(torch.bfloat16).to(dev),
+            "bias": (torch.randn(cout, generator=g) * 0.1).to(dev)}}
+
+    params = {"b1": conv(3, c1, c2), "cv1": conv(1, c2, c2),
+              "m0_cv1": conv(3, c, c), "m0_cv2": conv(3, c, c),
+              "cv2": conv(1, 3 * c, c2)}
+    x = (torch.randn(b, h, w, c1, generator=g) * 0.3).to(dev, torch.bfloat16)
+    got = ops.fused_b1b2(x, params).float()
+    ref = region_b1b2_plain(x, params).float()
+    assert got.shape == ref.shape == (b, h // 2, w // 2, c2)
+    d = (got - ref).abs()
+    std = float(ref.std())
+    assert bool((d <= 0.05 * std + 2.0 ** -7 * ref.abs()).all()), \
+        (float(d.max()), std)
+    assert float(d.mean()) <= 0.005 * std, (float(d.mean()), std)

@@ -143,3 +143,16 @@ def test_kernel_d_plain_bf16_matches_jax_kernel():
     got = attention.fused_attention_block_i8(
         _t(x).to(torch.bfloat16), *map(_t, rest), heads=4).float().numpy()
     np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=0.05)
+
+
+def test_scales_divide_by_a_tensor_not_a_scalar():
+    """amax / 127 must be an IEEE division on the card too: torch's CUDA
+    kernels turn division by a Python scalar into multiplication by its
+    rounded reciprocal.  Here (CPU) the two agree; the check is that the
+    result equals numpy's IEEE quotient on values where x * (1/127)
+    differs from x / 127."""
+    x = np.arange(1, 4001, dtype=np.float32)[:, None] * np.float32(0.37)
+    want = np.maximum(np.abs(x), 1e-8).astype(np.float32) / np.float32(127.0)
+    assert (x * np.float32(1 / 127.0) != want).any()
+    _, s = quant.quantize_act(_t(x))
+    np.testing.assert_array_equal(s.numpy(), want)

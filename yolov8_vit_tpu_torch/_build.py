@@ -27,9 +27,10 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 # one shared library per TPU kernel's source
 SOURCES = {
-    "nms": "nms.cu",                 # kernels A and B
-    "quant_mlp": "quant_mlp.cu",     # kernel C
-    "attention": "attention.cu",     # kernels D, E and F
+    "nms": "nms.cu",                     # kernels A, B and I
+    "quant_mlp": "quant_mlp.cu",         # kernels C, G and H
+    "attention": "attention.cu",         # kernels D, E and F
+    "fused_region": "fused_region.cu",   # kernel J
 }
 HEADERS = ("int8_common.cuh", "sdpa.cuh", "gemm_float.cuh")
 

@@ -1,15 +1,29 @@
-"""Configuration types of the two-stage pipeline (PyTorch port).
+"""Configuration types of the two-stage pipeline and the inspection
+service (PyTorch port).
 
-The port's own copy of the detection config and class set of
-`yolov8_vit_tpu/config.py`, so nothing here imports the JAX package.
-Field names and defaults are identical: engine `meta.json` files written
-by the JAX package load unchanged.
+The port's own copy of the detection config, the class set and the
+JSON-backed service config of `yolov8_vit_tpu/config.py`, so nothing here
+imports the JAX package.  Field names and defaults are identical: engine
+`meta.json` files and service `config.json` files written by the JAX
+package load unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import threading
 
+# 'loss' is an alias of 'lose'
 CLASS_NAMES: tuple[str, ...] = ("good", "broke", "lose", "uncovered", "circle")
+LABEL_MAPPING: dict[str, int] = {
+    "good": 0,
+    "broke": 1,
+    "lose": 2,
+    "loss": 2,
+    "uncovered": 3,
+    "circle": 4,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +61,55 @@ def detect_config_from_meta(meta_cfg: dict) -> DetectConfig:
         if key in kw:
             kw[key] = tuple(kw[key])
     return DetectConfig(**kw)
+
+
+class ServiceConfig:
+    """JSON-backed mutable service config (thread-safe): keys `num`,
+    `standard`, `class_config`, `detect_config`, read-modify-written by
+    the retrain counter and the `/getConfig` route under one lock."""
+
+    DEFAULTS = {
+        "num": 0,
+        "standard": 100,
+        "class_config": {"epoch": 10},
+        "detect_config": {},
+    }
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(self.DEFAULTS, f)
+
+    def read(self) -> dict:
+        with self._lock, open(self.path) as f:
+            return json.load(f)
+
+    def write(self, data: dict) -> None:
+        with self._lock, open(self.path, "w") as f:
+            json.dump(data, f)
+
+    def update(self, **kv) -> dict:
+        with self._lock:
+            with open(self.path) as f:
+                data = json.load(f)
+            data.update(kv)
+            with open(self.path, "w") as f:
+                json.dump(data, f)
+            return data
+
+    def bump_and_check(self) -> tuple[int, bool]:
+        """Increment the label counter; return (new_num, retrain_due).
+        When num reaches `standard` the retrain is due and the counter
+        resets to 0."""
+        with self._lock:
+            with open(self.path) as f:
+                data = json.load(f)
+            num = data.get("num", 0) + 1
+            due = num >= data.get("standard", self.DEFAULTS["standard"])
+            data["num"] = 0 if due else num
+            with open(self.path, "w") as f:
+                json.dump(data, f)
+            return data["num"], due

@@ -1,13 +1,15 @@
-// Shared device code of the W8A8 kernels C (quant_mlp.cu) and D
+// Shared device code of the W8A8 kernels C, G, H (quant_mlp.cu) and D
 // (attention.cu): per-row LayerNorm + dynamic int8 quantization, and an
 // int8 tensor-core GEMM (mma.sync m16n8k32, s8 x s8 -> s32) with the
-// rescale / bias / GELU / residual epilogues of yolov8_vit_tpu/ops/quant.py.
+// rescale / bias / GELU / SiLU / residual epilogues of
+// yolov8_vit_tpu/ops/quant.py.
 //
 // Arithmetic follows the TPU kernels operation by operation:
 //   quantize_act: scale = max(amax, 1e-8) / 127; q = clip(rint(x / scale),
 //                 -127, 127) with IEEE division and round-half-to-even;
 //   epilogue:     ((float)acc * s_row) * s_col + bias, in that order;
-//   gelu (tanh):  x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))).
+//   gelu (tanh):  x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3))));
+//   silu:         y * (1 / (1 + exp(-y))), in f32 before the one cast.
 // The library is built with -fmad=false, so none of it is contracted.
 #pragma once
 
@@ -118,7 +120,8 @@ int ln_quant_rows(const void* x, int m, int d, const float* ln_scale,
 // a (m, k) int8 row-major; w (n, k) int8: the weight TRANSPOSED to
 // (out, in) so each output column's k run is contiguous, which is the
 // "col" B operand of mma.sync.  k % 16 == 0 and 16-byte aligned rows.
-enum Epilogue { kEpiBias = 0, kEpiResidual = 1, kEpiGeluF32 = 2 };
+enum Epilogue { kEpiBias = 0, kEpiResidual = 1, kEpiGeluF32 = 2,
+                kEpiBiasSilu = 3 };
 
 constexpr int kBM = 64, kBN = 128, kBK = 64;
 constexpr int kLd = kBK + 16;   // smem row stride (bytes): conflict-free frags
@@ -199,6 +202,9 @@ gemm_i8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
                       + bias[col];
       if (kEpi == kEpiBias) {
         static_cast<OutT*>(out)[o] = from_f<OutT>(v);
+      } else if (kEpi == kEpiBiasSilu) {
+        const float sig = __fdiv_rn(1.f, 1.f + expf(-v));
+        static_cast<OutT*>(out)[o] = from_f<OutT>(v * sig);
       } else if (kEpi == kEpiResidual) {
         static_cast<OutT*>(out)[o] = from_f<OutT>(to_f(resid[o]) + v);
       } else {

@@ -1,4 +1,4 @@
-// Greedy NMS kernels for Hopper (sm_90a): kernels A and B of the port.
+// Greedy NMS kernels for Hopper (sm_90a): kernels A, B and I of the port.
 //
 // A  nms_argmax_ml_kernel replaces yolov8_vit_tpu/ops/nms.py
 //    `_nms_argmax_kernel_ml` (stage-1 EfficientNMS, multi-label,
@@ -10,6 +10,14 @@
 //    (up to 100 dependent iterations, each two block barriers); one CTA per
 //    image keeps the whole loop on chip, with no launch or global round trip
 //    per pick.
+// I  nms_argmax_kernel replaces `_nms_argmax_kernel` (stage-1 EfficientNMS,
+//    single-label: one candidate per anchor, its best class).  The same
+//    loop as A over one score per anchor (8400 f32 = 34 KB of shared
+//    memory), bound by the same sequential picks.  Classes are kept apart
+//    as the TPU kernel keeps them, by shifting each box by label * side
+//    before the IoU, in the same f32 operations: the shifted coordinates
+//    round, so a class-equality mask would decide pairs near the threshold
+//    differently.
 // B  mask_scan_kernel replaces `_mask_scan_kernel` (stage-2 area-sorted
 //    class-agnostic NMS over the 100 stage-1 rows, keep mask in row order).
 //    64 KB of input per batch: launch-latency bound.  One CTA of 128 threads
@@ -137,6 +145,76 @@ __global__ void nms_argmax_ml_kernel(const float* __restrict__ boxes,
   if (threadIdx.x == 0) num_dets[b] = kept;
 }
 
+// boxes (B, n, 4), per-anchor best score (B, n) and its label as f32
+// (B, n), side (B,) -> the outputs of kernel A.  Output rows carry the
+// box as given, not shifted.
+__global__ void nms_argmax_kernel(const float* __restrict__ boxes,
+                                  const float* __restrict__ scores,
+                                  const float* __restrict__ labels,
+                                  const float* __restrict__ sides, int n,
+                                  float iou_thr, float score_thr,
+                                  int max_out, int* __restrict__ num_dets,
+                                  float* __restrict__ out_boxes,
+                                  float* __restrict__ out_scores,
+                                  int* __restrict__ out_labels) {
+  extern __shared__ float smem[];
+  float* scs = smem;                              // n
+  float* red_v = smem + n;                        // 33
+  int* red_i = reinterpret_cast<int*>(red_v + 33);  // 33
+  const int b = blockIdx.x;
+  const float* bx = boxes + static_cast<size_t>(b) * n * 4;
+  const float* lab = labels + static_cast<size_t>(b) * n;
+  const float side = sides[b];
+  float* ob = out_boxes + static_cast<size_t>(b) * max_out * 4;
+  float* os = out_scores + static_cast<size_t>(b) * max_out;
+  int* ol = out_labels + static_cast<size_t>(b) * max_out;
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    scs[i] = scores[static_cast<size_t>(b) * n + i];
+  for (int s = threadIdx.x; s < max_out; s += blockDim.x) {
+    ob[4 * s] = 0.f; ob[4 * s + 1] = 0.f; ob[4 * s + 2] = 0.f;
+    ob[4 * s + 3] = 0.f;
+    os[s] = 0.f;
+    ol[s] = -1;
+  }
+  __syncthreads();
+
+  int kept = 0;
+  while (kept < max_out) {
+    float v = -INFINITY;
+    int idx = INT_MAX;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float s = scs[i];
+      if (s > v) { v = s; idx = i; }
+    }
+    block_argmax(v, idx, red_v, red_i);
+    if (!(v > score_thr)) break;
+    const float cx1 = bx[4 * idx], cy1 = bx[4 * idx + 1];
+    const float cx2 = bx[4 * idx + 2], cy2 = bx[4 * idx + 3];
+    const float clab = lab[idx];
+    const float coff = clab * side;
+    // the selected box's area is taken on the coordinates as given
+    const float c_area = fmaxf(cx2 - cx1, 0.f) * fmaxf(cy2 - cy1, 0.f);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const float off = lab[j] * side;
+      const float iou = iou_of(bx[4 * j] + off, bx[4 * j + 1] + off,
+                               bx[4 * j + 2] + off, bx[4 * j + 3] + off,
+                               cx1 + coff, cy1 + coff, cx2 + coff,
+                               cy2 + coff, c_area);
+      if (iou > iou_thr || j == idx) scs[j] = -1.f;
+    }
+    if (threadIdx.x == 0) {
+      ob[4 * kept] = cx1; ob[4 * kept + 1] = cy1;
+      ob[4 * kept + 2] = cx2; ob[4 * kept + 3] = cy2;
+      os[kept] = v;
+      ol[kept] = static_cast<int>(clab);
+    }
+    ++kept;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) num_dets[b] = kept;
+}
+
 // boxes (B, n, 4), priority (B, n) -> keep (B, n) as 0/1 bytes.
 __global__ void mask_scan_kernel(const float* __restrict__ boxes,
                                  const float* __restrict__ pri, int n,
@@ -193,6 +271,25 @@ extern "C" int launch_nms_argmax_ml(const float* boxes, const float* scores,
                          static_cast<cudaStream_t>(stream)>>>(
       boxes, scores, n, c, iou_thr, score_thr, max_out, num_dets, out_boxes,
       out_scores, out_labels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_nms_argmax(const float* boxes, const float* scores,
+                                 const float* labels, const float* sides,
+                                 int batch, int n, float iou_thr,
+                                 float score_thr, int max_out, int* num_dets,
+                                 float* out_boxes, float* out_scores,
+                                 int* out_labels, void* stream) {
+  const size_t smem = (static_cast<size_t>(n) + 66) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      nms_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (batch == 0) return 0;
+  nms_argmax_kernel<<<batch, 1024, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      boxes, scores, labels, sides, n, iou_thr, score_thr, max_out, num_dets,
+      out_boxes, out_scores, out_labels);
   return static_cast<int>(cudaGetLastError());
 }
 

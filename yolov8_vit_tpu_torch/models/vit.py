@@ -13,8 +13,9 @@ JAX package's `ViTClassifier`, for every spec it accepts.  A block is
 
 Module and buffer names follow the flax parameter tree, as in yolov8.py.
 Buffers keep the dtype of the tree they were loaded from (a bf16-stored
-engine stays bf16).  Weights in the activation dtype and the int8
-patch-embed fold are non-persistent buffers made by
+engine stays bf16).  Weights in the activation dtype, the int8 kernels
+transposed for the CUDA kernels and the int8 patch-embed fold are
+non-persistent buffers made by
 `ViTClassifier.prepare`, once per load (`weights.load_tree` calls it), not
 per forward.
 """
@@ -31,7 +32,8 @@ from yolov8_vit_tpu_torch.ops.attention import (flash_attention,
                                                 fused_attention_block,
                                                 fused_attention_block_i8,
                                                 sdpa_heads_plain)
-from yolov8_vit_tpu_torch.ops.quant import quant_dense, quant_mlp_ln_fused
+from yolov8_vit_tpu_torch.ops.quant import (quant_dense, quant_dense_fused,
+                                            quant_mlp_ln_fused)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +125,31 @@ class QDense(nn.Module):
         self.register_buffer("w_scale", torch.ones(fout))
         self.register_buffer("bias", torch.zeros(fout))
 
+    def derive(self, dtype) -> None:
+        """kernel_t: the int8 kernel transposed to (out, in), the layout
+        the CUDA kernels read."""
+        self.register_buffer("kernel_t", self.kernel_i8.t().contiguous(),
+                             persistent=False)
+
+
+class QuantDensePre(QDense):
+    """int8 dense layer over pre-quantized params (kernel G,
+    ops.quant.quant_dense_fused); output in `dtype`."""
+
+    def __init__(self, fin: int, fout: int, dtype=torch.float32):
+        super().__init__(fin, fout)
+        self.dtype = dtype
+        self.prepare()
+
+    def prepare(self) -> None:
+        """After a load (weights.load_tree calls it): the transposed
+        kernel follows the loaded one."""
+        self.derive(self.dtype)
+
+    def forward(self, x):
+        return quant_dense_fused(x, self.kernel_i8, self.w_scale, self.bias,
+                                 w_t=self.kernel_t).to(self.dtype)
+
 
 class LayerNorm(nn.Module):
     """flax nn.LayerNorm params {scale, bias}; statistics in f32 with
@@ -200,7 +227,8 @@ class Block(nn.Module):
             x = fused_attention_block_i8(
                 x, n1.scale, n1.bias, q.kernel_i8, q.w_scale, q.bias,
                 p.kernel_i8, p.w_scale, p.bias, heads=s.heads,
-                ln_eps=s.ln_eps, t_real=t_real)
+                ln_eps=s.ln_eps, t_real=t_real, wqkv_t=q.kernel_t,
+                wproj_t=p.kernel_t)
         elif s.attn_impl == "fused":
             x = fused_attention_block(
                 x, n1.scale, n1.bias, q.kernel_c, q.bias, p.kernel_c,
@@ -213,7 +241,7 @@ class Block(nn.Module):
             return quant_mlp_ln_fused(
                 x, self.norm2.scale, self.norm2.bias, f1.kernel_i8,
                 f1.w_scale, f1.bias, f2.kernel_i8, f2.w_scale, f2.bias,
-                ln_eps=s.ln_eps)
+                ln_eps=s.ln_eps, w1_t=f1.kernel_t, w2_t=f2.kernel_t)
         h = f2(F.gelu(f1(self.norm2(x, dt))))
         return x + h
 

@@ -24,7 +24,7 @@ import torch
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
-                                            quant_dense_pre)
+                                            quant_dense_pre, transposed_i8)
 
 # head dims the CUDA SDPA core is built for
 SDPA_HEAD_DIMS = (16, 32, 64)
@@ -83,10 +83,13 @@ def attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv, wproj_i8,
 def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
                              sqkv, bqkv, wproj_i8, sproj, bproj, *,
                              heads: int, ln_eps: float = 1e-6,
-                             t_real: int | None = None) -> torch.Tensor:
+                             t_real: int | None = None, wqkv_t=None,
+                             wproj_t=None) -> torch.Tensor:
     """x (B, T, D) f32 or bf16 -> x + proj(MHA(LN(x))), qkv and proj W8A8.
 
-    wqkv (D, 3D) and wproj (D, D) int8 in the JAX (in, out) layout;
+    wqkv (D, 3D) and wproj (D, D) int8 in the JAX (in, out) layout
+    (wqkv_t, wproj_t: their (out, in) copies, made once by a caller that
+    runs many forwards; without them the wrapper transposes per call);
     scales, biases and LN params f32.  t_real < T masks key columns
     >= t_real.  CUDA tensors launch kernel D; CPU tensors run the plain
     version."""
@@ -107,8 +110,8 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     dev = x.device
     dt = x.dtype
     hd = d // heads
-    wqt = wqkv_i8.t().contiguous()
-    wpt = wproj_i8.t().contiguous()
+    wqt = transposed_i8(wqkv_i8, wqkv_t)
+    wpt = transposed_i8(wproj_i8, wproj_t)
     hq = torch.empty(m, d, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
     qkv = torch.empty(m, 3 * d, dtype=dt, device=dev)

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from yolov8_vit_tpu_torch.ops.resize import resize_bilinear_mm
+from yolov8_vit_tpu_torch.ops.resize import (resize_bilinear,
+                                             resize_bilinear_mm)
 
 
 def letterbox_params(in_hw: tuple[int, int], out_hw: tuple[int, int]):
@@ -23,6 +24,20 @@ def letterbox_params(in_hw: tuple[int, int], out_hw: tuple[int, int]):
     dw, dh = (out_w - new_w) / 2.0, (out_h - new_h) / 2.0
     top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
     return new_h, new_w, r, dw, dh, top, left
+
+
+def letterbox(img: torch.Tensor, out_hw: tuple[int, int],
+              pad_value: int = 114):
+    """Letterbox (..., H, W, C) to out_hw in img's dtype, the resize an
+    exact gather (`resize_bilinear`).  Returns (image, ratio, (dw, dh))."""
+    out_h, out_w = out_hw
+    h, w = img.shape[-3], img.shape[-2]
+    new_h, new_w, r, dw, dh, top, left = letterbox_params((h, w), out_hw)
+    resized = img if (new_h, new_w) == (h, w) \
+        else resize_bilinear(img, (new_h, new_w))
+    padded = F.pad(resized, (0, 0, left, out_w - new_w - left,
+                             top, out_h - new_h - top), value=pad_value)
+    return padded, r, (dw, dh)
 
 
 def letterbox_fast(img: torch.Tensor, out_hw: tuple[int, int],

@@ -1,10 +1,14 @@
-"""Greedy NMS with static output shapes: kernels A and B.
+"""Greedy NMS with static output shapes: kernels A, B and I.
 
  1. Stage 1, `efficient_nms_scan`: EfficientNMS_TRT semantics (IoU .65,
-    conf .25, top 100, class-aware, every (anchor, class) pair a candidate),
-    fixed-size (num_dets, boxes, scores, labels) outputs.  On the card this
-    is kernel A (csrc/nms.cu `nms_argmax_ml_kernel`), which replaces
-    yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.
+    conf .25, top 100, class-aware), fixed-size (num_dets, boxes, scores,
+    labels) outputs.  multi_label=True (the default, what the pipeline
+    runs): every (anchor, class) pair a candidate; on the card kernel A
+    (csrc/nms.cu `nms_argmax_ml_kernel`), which replaces
+    yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.  multi_label=False:
+    one candidate per anchor, its best class, classes kept apart by a
+    per-class coordinate offset; on the card kernel I (`nms_argmax_kernel`),
+    which replaces `_nms_argmax_kernel`.
  2. Stage 2, `area_sorted_nms`: conf > .35, priority = box area, class-
     agnostic suppression at IoU .45, keep mask in row order.  On the card
     this is kernel B (csrc/nms.cu `mask_scan_kernel`), which replaces
@@ -76,18 +80,75 @@ def nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
     return num, ob, os_, ol
 
 
+def single_label_candidates(boxes: torch.Tensor, scores: torch.Tensor):
+    """What the single-label form computes ahead of its kernel, per image:
+    each anchor's best score, its label as f32 (the first maximum on
+    ties), and the class-band stride side = 2 (max |boxes| + 1): boxes may
+    have negative coordinates, so each band covers [-side/2, side/2]."""
+    per_score, per_label = scores.max(dim=-1)
+    side = 2.0 * (boxes.abs().amax(dim=(1, 2)) + 1.0)
+    return per_score.contiguous(), per_label.to(torch.float32), side
+
+
+def nms_argmax_plain(boxes, per_score, per_label, side, iou_threshold,
+                     score_threshold, max_output):
+    """Plain version of kernel I over a batch: boxes (B, N, 4), per_score
+    and per_label (B, N) f32, side (B,) -> the outputs of
+    `nms_argmax_ml_plain`.  The IoU runs on boxes shifted by label * side
+    (the selected box's area on the box as given), as the kernel does."""
+    b, n = per_score.shape
+    dev = per_score.device
+    scs = per_score.clone()
+    idx = torch.arange(n, device=dev)
+    rows = torch.arange(b, device=dev)
+    shifted = boxes + (per_label * side[:, None])[..., None]
+    num = torch.zeros(b, dtype=torch.int32, device=dev)
+    ob = torch.zeros(b, max_output, 4, dtype=torch.float32, device=dev)
+    os_ = torch.zeros(b, max_output, dtype=torch.float32, device=dev)
+    ol = torch.full((b, max_output), -1, dtype=torch.int32, device=dev)
+    x1, y1, x2, y2 = shifted.unbind(-1)
+    area = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    for it in range(max_output):
+        m = scs.amax(dim=1)
+        active = m > score_threshold
+        if not bool(active.any()):
+            break
+        i_sel = torch.where(scs == m[:, None], idx, _BIG).amin(dim=1)
+        sel = boxes[rows, i_sel]                               # (B, 4)
+        clab = per_label[rows, i_sel]
+        cx1, cy1, cx2, cy2 = ((v + clab * side)[:, None]
+                              for v in sel.unbind(-1))
+        c_area = ((sel[:, 2] - sel[:, 0]).clamp_min(0.0)
+                  * (sel[:, 3] - sel[:, 1]).clamp_min(0.0))[:, None]
+        iw = (torch.minimum(x2, cx2) - torch.maximum(x1, cx1)).clamp_min(0.0)
+        ih = (torch.minimum(y2, cy2) - torch.maximum(y1, cy1)).clamp_min(0.0)
+        inter = iw * ih
+        iou = inter / (area + c_area - inter).clamp_min(1e-9)
+        kill = ((iou > iou_threshold) | (idx == i_sel[:, None])) \
+            & active[:, None]
+        scs = torch.where(kill, -1.0, scs)
+        ob[:, it] = torch.where(active[:, None], sel, ob[:, it])
+        os_[:, it] = torch.where(active, m, os_[:, it])
+        ol[:, it] = torch.where(active, clab.to(torch.int32), ol[:, it])
+        num += active.to(torch.int32)
+    return num, ob, os_, ol
+
+
 def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
                        iou_threshold: float = 0.65,
                        score_threshold: float = 0.25,
-                       max_output: int = 100):
+                       max_output: int = 100, multi_label: bool = True):
     """EfficientNMS with full-candidate greedy semantics.
 
     boxes (N, 4) or (B, N, 4) xyxy f32; scores (N, C) or (B, N, C) f32.
     Returns (num_dets, boxes (.., max_output, 4), scores (.., max_output),
     labels (.., max_output) int32, -1 padded), in pick (score-descending)
-    order.  CUDA tensors launch kernel A; CPU tensors run the plain
-    version.  (The JAX package's multi_label=False form needs
-    `_nms_argmax_kernel`, not yet ported: ROADMAP.md.)"""
+    order.  multi_label: every (anchor, class) pair competes (kernel A);
+    otherwise each anchor competes once, with its best class (kernel I).
+    CUDA tensors launch the kernel; CPU tensors run its plain version."""
+    if not multi_label:
+        return nms_single_label(boxes, scores, iou_threshold,
+                                 score_threshold, max_output)
     single = boxes.dim() == 2
     if single:
         boxes, scores = boxes[None], scores[None]
@@ -128,6 +189,54 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
 
 
 efficient_nms_scan.launches = 0
+
+
+def nms_single_label(boxes, scores, iou_threshold, score_threshold,
+                      max_output):
+    """efficient_nms_scan(multi_label=False): kernel I or its plain
+    version.  Its launches are counted on this function."""
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+    boxes = boxes.to(torch.float32).contiguous()
+    scores = scores.to(torch.float32)
+    b, n, _ = scores.shape
+    if boxes.shape != (b, n, 4):
+        raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
+                         f"{tuple(scores.shape)}")
+    per_score, per_label, side = single_label_candidates(boxes, scores)
+    if _build.on_cpu(boxes, per_score):
+        out = nms_argmax_plain(boxes, per_score, per_label, side,
+                               iou_threshold, score_threshold, max_output)
+    else:
+        if (n + 66) * 4 > 232448:
+            raise ValueError(f"{n} anchors exceed the kernel's shared "
+                             f"memory")
+        dev = boxes.device
+        num = torch.empty(b, dtype=torch.int32, device=dev)
+        ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
+        os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
+        ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
+        per_label, side = per_label.contiguous(), side.contiguous()
+        so = _build.lib("nms")
+        fn = so.launch_nms_argmax
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+        rc = fn(boxes.data_ptr(), per_score.data_ptr(), per_label.data_ptr(),
+                side.data_ptr(), b, n, iou_threshold, score_threshold,
+                max_output, num.data_ptr(), ob.data_ptr(), os_.data_ptr(),
+                ol.data_ptr(), _build.stream_ptr())
+        nms_single_label.launches += 1
+        _build.check(so, rc, "nms_argmax_kernel")
+        out = (num, ob, os_, ol)
+    if single:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+nms_single_label.launches = 0
 
 
 def mask_scan_plain(boxes: torch.Tensor, pri: torch.Tensor,

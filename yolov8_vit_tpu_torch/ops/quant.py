@@ -1,4 +1,5 @@
-"""W8A8 dynamic quantization and the int8 MLP sub-block: kernel C.
+"""W8A8 dynamic quantization, the int8 dense layer and the int8 MLP
+sub-blocks: kernels C, G and H.
 
   weights:      per-output-channel symmetric int8, scale = amax / 127,
                 quantized once (`prequantize_tree`);
@@ -6,10 +7,21 @@
   products:     int8 x int8 accumulated exactly in int32, rescaled as
                 y = (acc * s_x) * s_w + b.
 
-`quant_mlp_ln_fused` is the ViT's whole pre-norm MLP sub-block; on the card
-it is kernel C (csrc/quant_mlp.cu), which replaces yolov8_vit_tpu/ops/
-quant.py `_quant_mlp_ln_kernel`.  Its source note gives its bound on the
-H100 and its design.
+On the card (csrc/quant_mlp.cu; its source note gives the bounds on the
+H100 and the design), each replacing a kernel of yolov8_vit_tpu/ops/quant.py:
+
+  C  quant_mlp_ln_fused  the ViT's whole pre-norm MLP sub-block,
+                         replaces `_quant_mlp_ln_kernel`;
+  G  quant_dense_fused   one pre-quantized dense layer, optional SiLU,
+                         replaces `_quant_matmul_kernel`;
+  H  quant_mlp_fused     the MLP sub-block without the LN, its input and
+                         the residual given apart, replaces
+                         `_quant_mlp_kernel`.
+
+The kernels read each int8 weight transposed to (out, in).  A caller that
+runs many forwards makes that copy once and passes it (`w_t`, `w1_t`,
+`w2_t`; models/vit.py derives them per load); without it a wrapper
+transposes per call.
 """
 from __future__ import annotations
 
@@ -28,10 +40,19 @@ MLP_AND_ATTN_SUFFIXES = MLP_SUFFIXES + ("qkv", "proj")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _div127(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127 as an IEEE division on every device: by a
+    Python scalar, torch's CUDA kernels multiply by the rounded reciprocal
+    instead, which moves the scale by an ulp and with it the int8 codes of
+    values at a rounding boundary."""
+    return amax.clamp_min(1e-8) / torch.full((), 127.0, dtype=amax.dtype,
+                                             device=amax.device)
+
+
 def quantize_weight(w: torch.Tensor):
     """(in, out) f32 -> (int8 (in, out), scale (out,) f32), per out-channel."""
     w = w.to(torch.float32)
-    scale = w.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    scale = _div127(w.abs().amax(dim=0))
     w_i8 = torch.round(w / scale[None, :]).clamp(-127, 127).to(torch.int8)
     return w_i8, scale
 
@@ -39,7 +60,7 @@ def quantize_weight(w: torch.Tensor):
 def quantize_act(x: torch.Tensor):
     """(..., in) f32 -> (int8, scale (..., 1)), per-row dynamic symmetric:
     round half to even, clip to +-127."""
-    scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    scale = _div127(x.abs().amax(dim=-1, keepdim=True))
     x_i8 = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
     return x_i8, scale
 
@@ -107,29 +128,28 @@ def quant_mlp_ln_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
     return (xf + y).to(x.dtype)
 
 
-def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
-                       w2_i8, s2, b2, ln_eps: float = 1e-6) -> torch.Tensor:
-    """x + fc2(gelu(fc1(LN(x)))) with both matmuls W8A8.
+def transposed_i8(w_i8: torch.Tensor, w_t: torch.Tensor | None = None):
+    """The (out, in) contiguous copy of an int8 (in, out) weight that the
+    kernels read: `w_t` where the caller made it, else a copy made now."""
+    if w_t is None:
+        return w_i8.t().contiguous()
+    if w_t.shape != w_i8.shape[::-1] or not w_t.is_contiguous() \
+            or w_t.dtype != torch.int8:
+        raise ValueError(f"transposed weight {tuple(w_t.shape)} "
+                         f"{w_t.dtype} does not fit {tuple(w_i8.shape)}")
+    return w_t
 
-    x (..., D) f32 or bf16; w1 (D, H) and w2 (H, D) int8 in the JAX (in,
-    out) layout; scales, biases and LN params f32.  CUDA tensors launch
-    kernel C; CPU tensors run the plain version."""
-    *lead, d = x.shape
-    hid = w1_i8.shape[1]
-    xm = x.reshape(-1, d).contiguous()
+
+def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps):
+    """The launch chain of kernels C (ln = (scale, bias)) and H (ln =
+    None) on (M, D) rows; w1t (H, D) and w2t (D, H) transposed int8."""
+    m, d = xm.shape
+    hid = w1t.shape[0]
+    if xm.dtype not in DTYPE_CODES or d % 16 or hid % 16:
+        raise ValueError(f"{what} takes f32/bf16 rows with D, H multiples "
+                         f"of 16; got {xm.dtype}, D={d}, H={hid}")
+    dev = xm.device
     f32 = torch.float32
-    vecs = [v.to(f32).contiguous() for v in (ln_scale, ln_bias, s1, b1, s2, b2)]
-    if _build.on_cpu(xm, w1_i8, w2_i8, *vecs):
-        return quant_mlp_ln_plain(xm, vecs[0], vecs[1], w1_i8, vecs[2],
-                                  vecs[3], w2_i8, vecs[4], vecs[5],
-                                  ln_eps).reshape(*lead, d)
-    if x.dtype not in DTYPE_CODES or d % 16 or hid % 16:
-        raise ValueError(f"kernel C takes f32/bf16 rows with D, H multiples "
-                         f"of 16; got {x.dtype}, D={d}, H={hid}")
-    m = xm.shape[0]
-    dev = x.device
-    w1t = w1_i8.t().contiguous()
-    w2t = w2_i8.t().contiguous()
     hq = torch.empty(m, d, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
     a = torch.empty(m, hid, dtype=f32, device=dev)
@@ -137,22 +157,138 @@ def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
     sa = torch.empty(m, dtype=f32, device=dev)
     out = torch.empty_like(xm)
     so = _build.lib("quant_mlp")
-    fn = so.launch_quant_mlp_ln
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_float] + [ctypes.c_void_p] * 13)
+    fn = so.launch_quant_mlp
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                   + [ctypes.c_void_p] * 13)
     fn.restype = ctypes.c_int
-    p = [t.data_ptr() for t in vecs]
-    rc = fn(xm.data_ptr(), DTYPE_CODES[x.dtype], m, d, hid, p[0], p[1],
-            ln_eps, w1t.data_ptr(), p[2], p[3], w2t.data_ptr(), p[4], p[5],
+    ln_p = (None, None) if ln is None else (ln[0].data_ptr(),
+                                            ln[1].data_ptr())
+    rc = fn(xm.data_ptr(), res.data_ptr(), DTYPE_CODES[xm.dtype], m, d, hid,
+            ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(), s1.data_ptr(),
+            b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
             hq.data_ptr(), sx.data_ptr(), a.data_ptr(), aq.data_ptr(),
             sa.data_ptr(), out.data_ptr(), _build.stream_ptr())
+    return so, rc, out
+
+
+def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
+                       w2_i8, s2, b2, ln_eps: float = 1e-6, *,
+                       w1_t=None, w2_t=None) -> torch.Tensor:
+    """x + fc2(gelu(fc1(LN(x)))) with both matmuls W8A8.
+
+    x (..., D) f32 or bf16; w1 (D, H) and w2 (H, D) int8 in the JAX (in,
+    out) layout (w1_t, w2_t: their (out, in) copies, see the module note);
+    scales, biases and LN params f32.  CUDA tensors launch kernel C; CPU
+    tensors run the plain version."""
+    *lead, d = x.shape
+    xm = x.reshape(-1, d).contiguous()
+    f32 = torch.float32
+    vecs = [v.to(f32).contiguous() for v in (ln_scale, ln_bias, s1, b1, s2, b2)]
+    if _build.on_cpu(xm, w1_i8, w2_i8, *vecs):
+        return quant_mlp_ln_plain(xm, vecs[0], vecs[1], w1_i8, vecs[2],
+                                  vecs[3], w2_i8, vecs[4], vecs[5],
+                                  ln_eps).reshape(*lead, d)
+    so, rc, out = _launch_mlp(
+        "kernel C", xm, xm, vecs[:2], transposed_i8(w1_i8, w1_t), vecs[2],
+        vecs[3], transposed_i8(w2_i8, w2_t), vecs[4], vecs[5], ln_eps)
     quant_mlp_ln_fused.launches += 1
     _build.check(so, rc, "quant_mlp_ln (kernel C)")
     return out.reshape(*lead, d)
 
 
 quant_mlp_ln_fused.launches = 0
+
+
+def quant_mlp_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2) -> torch.Tensor:
+    """Plain version of kernel H on (M, D) rows."""
+    a = gelu_tanh(quant_dense_pre(h.to(torch.float32), w1_i8, s1, b1))
+    y = quant_dense_pre(a, w2_i8, s2, b2)
+    return (residual.to(torch.float32) + y).to(h.dtype)
+
+
+def quant_mlp_fused(h: torch.Tensor, residual: torch.Tensor, w1_i8, s1, b1,
+                    w2_i8, s2, b2, *, w1_t=None, w2_t=None) -> torch.Tensor:
+    """residual + fc2(gelu_tanh(fc1(h))) with both matmuls W8A8, in h's
+    dtype.
+
+    h, residual (..., D) f32 or bf16; w1 (D, H) and w2 (H, D) int8 in the
+    JAX (in, out) layout (w1_t, w2_t: their (out, in) copies); scales and
+    biases f32.  CUDA tensors launch kernel H, which takes h and residual
+    in one dtype; CPU tensors run the plain version."""
+    *lead, d = h.shape
+    hm = h.reshape(-1, d).contiguous()
+    rm = residual.reshape(-1, d).contiguous()
+    f32 = torch.float32
+    vecs = [v.to(f32).contiguous() for v in (s1, b1, s2, b2)]
+    if _build.on_cpu(hm, rm, w1_i8, w2_i8, *vecs):
+        return quant_mlp_plain(hm, rm, w1_i8, vecs[0], vecs[1], w2_i8,
+                               vecs[2], vecs[3]).reshape(*lead, d)
+    if rm.dtype != hm.dtype or rm.shape != hm.shape:
+        raise ValueError(f"kernel H takes h and residual of one shape and "
+                         f"dtype; got {tuple(hm.shape)} {hm.dtype} and "
+                         f"{tuple(rm.shape)} {rm.dtype}")
+    so, rc, out = _launch_mlp(
+        "kernel H", hm, rm, None, transposed_i8(w1_i8, w1_t), vecs[0],
+        vecs[1], transposed_i8(w2_i8, w2_t), vecs[2], vecs[3], 0.0)
+    quant_mlp_fused.launches += 1
+    _build.check(so, rc, "quant_mlp (kernel H)")
+    return out.reshape(*lead, d)
+
+
+quant_mlp_fused.launches = 0
+
+
+def quant_dense_plain(x, w_i8, w_scale, bias, silu: bool = False):
+    """Plain version of kernel G on (M, K) rows: the f32 result rounded
+    once to x's dtype."""
+    y = quant_dense_pre(x.to(torch.float32), w_i8, w_scale, bias)
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
+                      w_scale: torch.Tensor, bias: torch.Tensor,
+                      silu: bool = False, *, w_t=None) -> torch.Tensor:
+    """x (..., K) f32 or bf16 @ pre-quantized int8 w (K, N): per-row
+    dynamic quantization, exact int8 product, (acc * s_x) * s_w + bias,
+    optional SiLU in f32, one cast to x's dtype.
+
+    w_t: the (N, K) copy of w (see the module note).  CUDA tensors launch
+    kernel G (K a multiple of 16); CPU tensors run the plain version."""
+    *lead, k = x.shape
+    n = w_i8.shape[1]
+    xm = x.reshape(-1, k).contiguous()
+    f32 = torch.float32
+    sw, b = w_scale.to(f32).contiguous(), bias.to(f32).contiguous()
+    if _build.on_cpu(xm, w_i8, sw, b):
+        return quant_dense_plain(xm, w_i8, sw, b, silu).reshape(*lead, n)
+    if x.dtype not in DTYPE_CODES or k % 16:
+        raise ValueError(f"kernel G takes f32/bf16 rows with K a multiple "
+                         f"of 16; got {x.dtype}, K={k}")
+    m = xm.shape[0]
+    dev = x.device
+    wt = transposed_i8(w_i8, w_t)
+    xq = torch.empty(m, k, dtype=torch.int8, device=dev)
+    sx = torch.empty(m, dtype=f32, device=dev)
+    out = torch.empty(m, n, dtype=x.dtype, device=dev)
+    so = _build.lib("quant_mlp")
+    fn = so.launch_quant_dense
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    rc = fn(xm.data_ptr(), DTYPE_CODES[x.dtype], m, k, n, wt.data_ptr(),
+            sw.data_ptr(), b.data_ptr(), int(bool(silu)), xq.data_ptr(),
+            sx.data_ptr(), out.data_ptr(), _build.stream_ptr())
+    quant_dense_fused.launches += 1
+    _build.check(so, rc, "quant_dense (kernel G)")
+    return out.reshape(*lead, n)
+
+
+quant_dense_fused.launches = 0
 
 
 def prequantize_tree(params, match_suffixes=MLP_SUFFIXES):

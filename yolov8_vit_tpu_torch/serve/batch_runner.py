@@ -1,6 +1,6 @@
 """Batch inference: host decode + resolution-bucketed two-stage pipeline.
 
-  * frames decode on host threads (PIL, imported only there);
+  * frames decode on host threads (serve/imageio.py);
   * frames are bucketed by resolution, and each bucket runs
     letterbox -> detect -> NMS -> crop -> classify as one enqueued forward
     (models/two_stage.py); results map back to input order;
@@ -25,6 +25,7 @@ from yolov8_vit_tpu_torch.config import (CLASS_NAMES, DetectConfig,
                                          detect_config_from_meta)
 from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
 from yolov8_vit_tpu_torch.models.vit import ViTSpec
+from yolov8_vit_tpu_torch.serve import imageio
 from yolov8_vit_tpu_torch.weights import (init_tree, load_pipeline_tree,
                                           load_tree, read_engine)
 
@@ -106,12 +107,8 @@ class BatchRunner:
     # ------------------------------------------------------------------
     @staticmethod
     def _decode(path: str):
-        from PIL import Image
-        try:
-            with Image.open(path) as im:
-                return np.asarray(im.convert("RGB"))
-        except OSError:
-            return None
+        """RGB (H, W, 3) uint8, or None when the file does not decode."""
+        return imageio.imread_rgb(path)
 
     def _enqueue(self, paths: Sequence[str],
                  profile: dict | None = None) -> dict:
