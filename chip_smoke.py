@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels A-J from yolov8_vit_tpu_torch/csrc (nvcc, one
-     process per source, in parallel) and print the build seconds;
+     process per source, in parallel) and print the build seconds and
+     ptxas's registers, shared memory and spills of each kernel of the
+     attention library (D, E, F);
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: A and B (NMS) bit-exact on dense inputs with
      score ties and IoU-exactly-at-threshold pairs; C and D (W8A8 blocks,
@@ -14,7 +16,10 @@ Phases (any failure exits non-zero):
      attention block) and F (flash attention) at 785 tokens, bf16 at 64
      crops within FLOAT_BF16_TOL and f32 at 16 crops within F32_TOL; time
      each (CUDA events) beside its bound, its plain version and, for F,
-     PyTorch's scaled_dot_product_attention;
+     PyTorch's scaled_dot_product_attention; E beside torch.addmm at its
+     two GEMM shapes; print, on a line of their own and labelled as not
+     measured, D's, E's and F's times before their wgmma redesign and the
+     SDPA core's exponential floor;
   4. small-input checks: the whole pipeline on the card against the same
      pipeline on the CPU (plain versions), f32, integer outputs equal, with
      a w8a ViT (kernels C, D) and a float one (kernel E);
@@ -41,7 +46,8 @@ Phases (any failure exits non-zero):
      5's YOLOv8-s forward (batch 32, TF32 over bf16-valued operands) held
      against the same conv in f64 (CONV_TOL), and the card's stem against
      the same weights and frames on the CPU (STEM_DIFF_SHARE);
-  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps;
+  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps; E's
+     device time a call split into LN, QKV GEMM, SDPA and proj GEMM;
   11. kernels G-J, the public functions that no entry point of the package
      reaches, each held against its plain version and timed: G
      (`quant_dense_fused`) at 64 x 197 rows with the four ViT-B (K, N)
@@ -91,6 +97,14 @@ BATCHES = 4                                    # timed frame batches
 # engine dirs the run writes (inside the ignored chip_smoke_out/, deleted
 # after each phase)
 ENGINE_DIR = os.path.join(HERE, "chip_smoke_out", "engines")
+
+# the kernels' times before the SDPA core and E's GEMMs moved to wgmma
+# (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): printed for
+# reference beside this run's, never as a measurement of it
+PREV_MS = {"attn_block_i8": 0.650, "attn_block_i8_t785": 3.857,
+           "attn_block": 3.478, "flash_attention": 2.421}
+# special-function (ex2) lanes of an H100 SM, and its SMs
+SFU_PER_SM, SMS = 16, 132
 
 # H100 SXM datasheet peaks (dense)
 PEAK_BYTES_S = 3.35e12
@@ -180,6 +194,54 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _exp_floor_ms(scores: int) -> float:
+    """The least time of the SDPA core's exponentials: two ex2 a score (one
+    a pass) on the special-function lanes at the card's top SM clock."""
+    return 2 * scores / (SFU_PER_SM * SMS * _max_sm_clock_hz()) * 1e3
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """One line a kernel from nvcc's -Xptxas -v output: its name, registers,
+    stack, spills and static shared memory."""
+    import re
+
+    def short(mangled: str) -> str:
+        # the length-prefixed name ending in _kernel, its integer template
+        # arguments, and the activation type where the arguments name one
+        for m in re.finditer(r"\d+", mangled):
+            n, st = int(m.group()), m.end()
+            cand = mangled[st:st + n]
+            if cand.endswith("_kernel") and cand.isidentifier():
+                rest = mangled[st + n:mangled.find("Ev", st + n)]
+                args = re.findall(r"Li(\d+)E", rest)
+                if "bfloat16" in rest:
+                    args.insert(0, "bf16")
+                elif rest.startswith("If"):
+                    args.insert(0, "f32")
+                return f"{cand}<{', '.join(args)}>" if args else cand
+        return mangled
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = short(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name is not None:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -484,6 +546,14 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
                         10)
         p_ms = _time_ms(lambda: fused_attention_block_plain(
             *args, heads=heads), 2)
+        # a yardstick for E's two GEMMs: one torch.addmm (cuBLAS) at each
+        # shape, bias in bf16, no residual
+        h = torch.randn(m, d, generator=torch.Generator().manual_seed(6)
+                        ).to(dev, dt)
+        lib_gemm = {name: _time_ms(
+            lambda b16=b_.to(dt), w=w_: torch.addmm(b16, h, w), 10)
+            for name, w_, b_ in (("qkv", wqkv, bq), ("proj", wp, bp))}
+        del h
         op_ms = (8 * m * d * d + sdpa_ops(crops)) / PEAK_BF16_FLOPS * 1e3
         bound, by = _bound_ms(2 * m * d * 2 + 2 * 4 * d * d + 4 * 6 * d,
                               op_ms)
@@ -491,7 +561,9 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
                          source="yolov8_vit_tpu_torch/csrc/attention.cu",
                          replaces="yolov8_vit_tpu/ops/attention.py:135",
                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound, bound_by=by, library_ms=None))
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         gemm_library_ms=lib_gemm,
+                         exp_floor_ms=_exp_floor_ms(crops * heads * t * t)))
 
     # ---- F --------------------------------------------------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -519,7 +591,8 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
                          source="yolov8_vit_tpu_torch/csrc/attention.cu",
                          replaces="yolov8_vit_tpu/ops/attention.py:32",
                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound, bound_by=by, library_ms=lib_ms))
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                         exp_floor_ms=_exp_floor_ms(n * heads * t * t)))
     return rows, f32_err, bf16_stats
 
 
@@ -921,9 +994,18 @@ def detector_convs(torch, det, frames, ref_frames: int = 8,
             "stem_elements": stem_n, "head_max_abs_err_vs_cpu": head_err}
 
 
+# E's launches by kernel name (csrc/gemm_float.cuh, csrc/sdpa.cuh; the
+# GEMM's template argument is its epilogue): the parts of its device
+# time a call
+E_PARTS = {"ln": r"ln_rows_kernel", "qkv_gemm": r"gemm_wgmma_kernel<0>",
+           "sdpa": r"sdpa_wgmma_kernel", "proj_gemm": r"gemm_wgmma_kernel<1>"}
+
+
 def profile_step(torch, runner, frames, path: str) -> dict:
     """torch.profiler over two fused steps: device time by kernel, written
-    to `path`; returns the per-step device time and the top kernels."""
+    to `path`; returns the per-step device time, the top kernels and the
+    device ms a launch of each part of E (E_PARTS) where the step runs
+    E."""
     from torch.profiler import ProfilerActivity, profile
     runner._fn(frames)
     torch.cuda.synchronize()
@@ -943,8 +1025,16 @@ def profile_step(torch, runner, frames, path: str) -> dict:
     busy_us = sum(r[1] for r in rows)
     with open(path, "w") as f:
         f.write(ka.table(sort_by=attr, row_limit=40))
+    import re
+    e_split = {}
+    for part, name in E_PARTS.items():
+        hits = [(us, n) for k, us, n in rows if re.search(name, k)]
+        if hits:
+            e_split[part] = sum(us for us, _ in hits) / sum(
+                n for _, n in hits) / 1e3
     return {"device_us_per_step": busy_us / 2,
-            "top": [(k[:60], round(us / 2, 1), n // 2) for k, us, n in rows[:12]]}
+            "top": [(k[:60], round(us / 2, 1), n // 2) for k, us, n in rows[:12]],
+            **({"attn_block_split_ms": e_split} if e_split else {})}
 
 
 def _equal(torch, name, got, ref) -> None:
@@ -1431,6 +1521,9 @@ def main() -> int:
     build_s = _build.build()
     print(f"build: {build_s:.1f} s (wall {time.perf_counter() - t0:.1f} s)",
           flush=True)
+    ptxas = _ptxas_summary(_build.build_log("attention"))
+    print("ptxas, attention library (D, E, F):\n  " + "\n  ".join(ptxas),
+          flush=True)
 
     t0 = time.perf_counter()
     rows = check_kernels(torch, ops, mlp_rows=64 * 197, crops=BATCH * BUDGET)
@@ -1444,7 +1537,16 @@ def main() -> int:
               f"max_abs_err {r['max_abs_err']}"
               + (f" (transposing per call: "
                  f"{r['ms_transposing_per_call']:.4f} ms)"
-                 if "ms_transposing_per_call" in r else ""), flush=True)
+                 if "ms_transposing_per_call" in r else "")
+              + (f" gemm_library_ms {r['gemm_library_ms']}"
+                 if "gemm_library_ms" in r else ""), flush=True)
+    # derived or copied numbers, kept out of the kernel rows
+    reference = {"mma_sync_version_ms": PREV_MS, "exp_floor_ms": {
+        r["name"]: r.pop("exp_floor_ms") for r in rows
+        if "exp_floor_ms" in r}}
+    print("not measured in this run: D, E, F before wgmma (PERF.md) and "
+          f"the SDPA core's exponential floor: {json.dumps(reference)}",
+          flush=True)
     print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
           f"{json.dumps(bf16_stats)}")
@@ -1515,10 +1617,16 @@ def main() -> int:
         print(f"profile of one {name} fused step: {json.dumps(p)}",
               flush=True)
 
+    split = prof["vit_b8_float"].get("attn_block_split_ms", {})
+    if set(split) != set(E_PARTS):
+        raise AssertionError(f"profile of the ViT-B/8 float step: E's parts "
+                             f"{sorted(split)}, not {sorted(E_PARTS)}")
     kernels = []
     for r in rows:
         wrapper, path = ROW_WRAPPER[r["name"]]
         r = dict(r, launches=paths[path]["launches"][wrapper])
+        if r["name"] == "attn_block":
+            r["split_ms"] = split
         for extra in ("picks", "by_shape", "by_input", "shape",
                       "silu_max_abs_err", "ms_transposing_per_call"):
             r.pop(extra, None)
@@ -1529,7 +1637,8 @@ def main() -> int:
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "public_ops": gj, "service": service,
-                   "profile": prof,
+                   "profile": prof, "ptxas_attention": ptxas,
+                   "not_measured": reference,
                    "total_s": time.perf_counter() - t_all}, f, indent=1)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi)

@@ -110,6 +110,21 @@ def test_kernel_f_takes_strided_views_of_packed_qkv():
     assert torch.equal(got, ref)
 
 
+def test_kernel_f_reads_in_place_only_views_tma_can_load():
+    """F's kernel loads k and v through TMA tensor maps over (feature,
+    token, image): the unbound views of a packed qkv qualify; a base off
+    16 bytes, images that overlap (an expanded batch) and heads that are
+    not adjacent do not, and the wrapper copies those first."""
+    qkv = torch.zeros(2, 21, 3, 4, 16)
+    assert all(attention._strided_ok(x, 16) for x in qkv.unbind(2))
+    flat = torch.zeros(2 * 21 * 4 * 16 + 1)
+    assert not attention._strided_ok(flat[1:].view(2, 21, 4, 16), 16)
+    assert not attention._strided_ok(
+        torch.zeros(1, 21, 4, 16).expand(2, 21, 4, 16), 16)
+    assert not attention._strided_ok(
+        torch.zeros(2, 4, 21, 16).transpose(1, 2), 16)
+
+
 def test_wrappers_registered_and_cpu_runs_plain():
     """E and F carry launch counts in ops.KERNEL_WRAPPERS; CPU tensors run
     the plain versions and launch nothing."""
@@ -143,3 +158,88 @@ def test_kernel_d_plain_takes_b8_sequence():
         *map(jnp.asarray, args), heads=heads, interpret=True))
     got = attention.fused_attention_block_i8(*map(_t, args), heads=heads)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# chip_smoke.py's FLOAT_BF16_TOL: one output ulp plus one flipped element
+# of P elementwise, mean error <= 2^-9 of mean |plain|, error against the
+# same function in f32 <= 1.1x the plain version's
+_FLOAT_BF16_TOL = {"atol": 2.0 ** -7, "rtol": 2.0 ** -7,
+                   "mean_rel": 2.0 ** -9, "f32_ratio": 1.1}
+_LOG2E = 1.4426950408889634
+
+
+def _kernel_sdpa_arith(q, k, v, prescale, seed=0):
+    """The bf16 SDPA core of csrc/sdpa.cuh, operation by operation, on
+    (B, T, H, hd) bf16 inputs in torch: q * scale rounded to bf16
+    (prescale, D and E) or the f32 scale folded into c (F); two passes over
+    64-key tiles with e = ex2(fma(s, c, -m c)), c = scale log2(e), the sum
+    rescaled as the max grows; p = e * (1 / l), one IEEE reciprocal a row;
+    p rounded to bf16, P.V summed in f32 and rounded to bf16.  ex2.approx
+    is 2^x within 2^-22 relative (a seeded draw); fma rounds once (f64,
+    then f32)."""
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    b, t, h, hd = q.shape
+    gen = torch.Generator().manual_seed(seed)
+    if prescale:
+        scale = torch.tensor(hd ** -0.5, dtype=bf16).to(f32)
+        q = (q.float() * scale).to(bf16)
+        c = torch.tensor(_LOG2E, dtype=f32)
+    else:
+        c = torch.tensor(hd ** -0.5, dtype=f32) * torch.tensor(_LOG2E,
+                                                                dtype=f32)
+
+    def ex2(x):
+        y = torch.exp2(x.double())
+        u = torch.rand(y.shape, generator=gen, dtype=f64) * 2 - 1
+        return (y * (1 + u * 2.0 ** -22)).float()
+
+    def fma(x, mc):
+        return (x.double() * c.double() - mc.double()).float()
+
+    s = torch.einsum("bqhc,bkhc->bhqk", q.float(), k.float())
+    m = torch.full(s.shape[:-1], float("-inf"))
+    l = torch.zeros(s.shape[:-1])
+    for k0 in range(0, t, 64):
+        st = s[..., k0:k0 + 64]
+        mn = torch.maximum(m, st.amax(-1))
+        mc = mn * c
+        l = l * ex2(fma(m, mc)) + ex2(fma(st, mc[..., None])).sum(-1)
+        m = mn
+    p = (ex2(fma(s, (m * c)[..., None])) * (1 / l)[..., None]).to(bf16)
+    return torch.einsum("bhqk,bkhc->bqhc", p.float(), v.float()).to(bf16)
+
+
+def _meets_float_bf16_tol(got, ref, f32_ref):
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = _FLOAT_BF16_TOL
+    assert bool((err <= tol["atol"] + tol["rtol"] * ref.abs()).all()), \
+        float(err.max())
+    assert float(err.mean() / ref.abs().mean()) <= tol["mean_rel"]
+    assert float((got - f32_ref).abs().mean()) <= tol["f32_ratio"] * float(
+        (ref - f32_ref).abs().mean())
+
+
+@pytest.mark.parametrize("form", ["heads", "flash"])
+def test_kernel_sdpa_arithmetic_meets_float_bf16_tol(form):
+    """The card's exponent and reciprocal in place of expf and IEEE
+    division (the bf16 core of D, E and F) at ViT-B/8's 785 tokens, 12
+    heads of 64, against sdpa_heads_plain (D, E: q * scale rounded) and
+    flash_attention_plain (F), bf16, within FLOAT_BF16_TOL."""
+    rng = np.random.default_rng(13)
+    b, t, h, hd = 1, 785, 12, 64
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3, h, hd))
+                           .astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    got = _kernel_sdpa_arith(q, k, v, prescale=form == "heads")
+    if form == "heads":
+        packed = qkv.reshape(b, t, 3 * h * hd)
+        ref = attention.sdpa_heads_plain(packed, h)
+        f32_ref = attention.sdpa_heads_plain(packed.float(), h)
+        got = got.reshape(b, t, h * hd)
+    else:
+        ref = attention.flash_attention_plain(q, k, v)
+        f32_ref = attention.flash_attention_plain(q.float(), k.float(),
+                                                  v.float())
+    assert got.dtype == ref.dtype == torch.bfloat16
+    _meets_float_bf16_tol(got, ref, f32_ref)

@@ -8,7 +8,9 @@ PyTorch version on CPU tensors instead.
 
 The build directory `_build/` beside this file is listed in .gitignore;
 library names carry a hash of the sources and flags, so an edited source
-never loads a stale library.
+never loads a stale library.  nvcc's output, with ptxas's registers,
+shared memory and spills of every kernel (`-Xptxas -v`), is kept beside
+each library (`build_log`).
 """
 from __future__ import annotations
 
@@ -32,13 +34,15 @@ SOURCES = {
     "attention": "attention.cu",         # kernels D, E and F
     "fused_region": "fused_region.cu",   # kernel J
 }
-HEADERS = ("int8_common.cuh", "sdpa.cuh", "gemm_float.cuh")
+HEADERS = ("int8_common.cuh", "hopper.cuh", "sdpa.cuh",
+           "gemm_float.cuh")
 
 # -fmad=false: no contracted multiply-adds, so IoU and quantization
 # arithmetic rounds exactly as the plain versions do (a contracted FMA
 # flips threshold-boundary NMS decisions).  Never --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -83,15 +87,24 @@ def build(names=None) -> float:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
     for n, out, tmp, p in procs:
-        log, _ = p.communicate()
+        log = p.communicate()[0].decode(errors="replace")
         if p.returncode != 0:
             errors.append(f"nvcc {SOURCES[n]} failed ({p.returncode}):\n"
-                          f"{log.decode(errors='replace')}")
+                          f"{log}")
         else:
+            with open(out + ".log", "w") as fh:
+                fh.write(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for library `name` (built first if needed)."""
+    build([name])
+    with open(_lib_path(name) + ".log") as fh:
+        return fh.read()
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -18,7 +18,9 @@
 //   F at (64, 785, 12, 64): 0.12 TFLOP, about 0.12 ms, against 0.09 ms of
 //     bytes: operations.
 // The SDPA core recomputes the scores in its second pass (1.5x the score
-// products) to keep the TPU kernel's rounding of P; see sdpa.cuh.
+// products) to keep the TPU kernel's rounding of P, and its exponentials
+// alone need about 0.23-0.26 ms at F's shape on the special-function
+// units (sdpa.cuh), above the products' bound.
 //
 // Design: where one TPU program held a group of images' whole sub-block
 // in VMEM, D and E are chains of launches on one stream with the
@@ -26,8 +28,14 @@
 //   D: LN1 + row quantize -> int8 GEMM qkv (*s + b) -> SDPA -> row
 //      quantize -> int8 GEMM proj (*s + b + x)          (int8_common.cuh)
 //   E: LN1 to the dtype -> GEMM qkv (+ b) -> SDPA -> GEMM proj (+ b + x)
-//      (gemm_float.cuh: bf16 on the tensor cores, f32 on the CUDA cores)
+//      (gemm_float.cuh: bf16 on wgmma with TMA, f32 on the CUDA cores)
 //   F: the SDPA core alone on strided (B, T, H, D) views.
+// At bf16 the SDPA and E's GEMMs are warp-specialised sm_90a kernels: a
+// producer warp streams tiles with TMA into a ring of shared-memory stages
+// behind mbarriers, and consumer warpgroups run wgmma on them (hopper.cuh).
+// Their TMA tensor maps are encoded per call on the host from the
+// pointers and strides the wrappers pass; a base or stride off TMA's
+// 16-byte rules returns an error, and the wrapper raises.
 #include "gemm_float.cuh"
 
 namespace {

@@ -1,16 +1,33 @@
-// Float device code of kernel E (attention.cu): row LayerNorm into the
-// activation dtype, and the GEMM of its QKV and proj products with the
-// bias and bias + residual epilogues:
+// Float device code of kernel E (attention.cu, replacing the QKV and proj
+// products of yolov8_vit_tpu/ops/attention.py `_attn_block_kernel`): row
+// LayerNorm into the activation dtype, and the GEMM of its QKV and proj
+// products with the bias and bias + residual epilogues:
 //     out[r][c] = dtype( sum_k a[r][k] * w[k][c] + bias[c] (+ resid[r][c]) )
 // a (m, k) row-major and w (k, n) row-major: the JAX (in, out) layout, so
 // the weights need no transpose, only the one cast to the activation
 // dtype the model makes per load.  The sum is f32 and the epilogue adds
 // bias (and residual) in f32 before the one rounding, as the TPU kernel's
 // `preferred_element_type=f32` products do.
-//   bf16: tensor cores (mma.sync.m16n8k16, bf16 x bf16 -> f32), 128 x 128
-//         CTA tiles of 8 warps (32 x 64 each), k-tiles of 32 double-
-//         buffered with cp.async; A fragments by ldmatrix, B (k-major in
-//         shared memory) by ldmatrix.trans.  k and n multiples of 8.
+//
+// Bound on the H100 for E at 64 crops x 785 tokens x 768, bf16: QKV is
+// 2 x 50240 x 768 x 2304 = 178 GFLOP (0.18 ms at 989 TFLOP/s) against 309
+// MB of a, w and out (0.09 ms); proj 59 GFLOP (0.06 ms) against 155 MB
+// (0.05 ms): operations.
+//
+//   bf16 (sm_90a): warp-specialised wgmma.  A CTA computes a 256 x 128
+//         tile: one producer warp's thread streams 64-deep k-tiles of a
+//         (one box of 256 rows) and w (two 64 x 64 boxes) through a ring
+//         of 4 stages of 48 KB with TMA (128-byte swizzle, zero fill past
+//         m, n and k); 4 consumer warpgroups of 64 rows each run wgmma
+//         m64n128k16 with a K-major from shared memory and w MN-major,
+//         keep one k-tile's products in flight while the next tile's
+//         barrier is awaited, and release each stage through an mbarrier.
+//         The products are bound by L2 reads more than by the tensor
+//         cores: a 128 x 128 tile reads one byte of a and w from L2 for
+//         every 64 flops, so QKV at that tile reads 2.8 GB from L2 (about
+//         0.4 ms at the 6.8 TB/s measured); the 256 x 128 tile (one CTA an
+//         SM) halves the re-reads of w.  k and n multiples of 8 (TMA's
+//         16-byte strides).
 //   f32:  CUDA cores, 64 x 64 tiles, 4 x 4 outputs a thread, explicit FMA.
 #pragma once
 
@@ -55,107 +72,121 @@ int ln_rows(const void* x, int m, int d, const float* s, const float* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16 GEMM ---------------------------------------------------------------
-constexpr int kGM = 128, kGN = 128, kGK = 32;
-constexpr int kALd = kGK + 8;     // 80-byte rows: ldmatrix conflict-free
-constexpr int kBLd = kGN + 8;     // 272-byte rows
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
+// ---- bf16 GEMM: wgmma + TMA ---------------------------------------------------
+// 256 x 128 tiles, 4 consumer warpgroups of 64 rows each, 4 stages.
+constexpr int kGWgs = 4, kGM = 64 * kGWgs, kGN = 128, kGK = 64;
+constexpr int kGStages = 4;
+constexpr int kGABytes = kGM * kGK * 2;           // a: kGM rows of 128 B
+constexpr int kGBBox = kGK * 64 * 2;              // w: one 64-column box
+constexpr int kGStage = kGABytes + 2 * kGBBox;
+constexpr size_t kGSmem =
+    kGStages * kGStage + 1024 + 2 * kGStages * sizeof(uint64_t);
 
 template <int kEpi>
-__global__ void __launch_bounds__(256)
-gemm_bf16_kernel(const __nv_bfloat16* __restrict__ a,
-                 const __nv_bfloat16* __restrict__ w, int m, int n, int k,
+__global__ void __launch_bounds__(128 * kGWgs + 32, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tw, int m, int n, int k,
                  const float* __restrict__ bias,
                  const __nv_bfloat16* __restrict__ resid,
                  __nv_bfloat16* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][kGM * kALd];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][kGK * kBLd];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
+  extern __shared__ uint8_t gemm_smem[];
+  uint8_t* tiles = align_1024(gemm_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kGStages * kGStage);
+  uint64_t* empty = full + kGStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int rep = 0; rep < 2; ++rep) {
-      const int idx = tid + rep * 256;
-      const int ra = idx >> 2, ca = (idx & 3) * 8;          // A: 128 x 4
-      const bool va = m0 + ra < m && k0 + ca < k;
-      cp_async16(&as[stage][ra * kALd + ca],
-                 va ? a + static_cast<size_t>(m0 + ra) * k + k0 + ca : a, va);
-      const int rb = idx >> 4, cb = (idx & 15) * 8;         // B: 32 x 16
-      const bool vb = k0 + rb < k && n0 + cb < n;
-      cp_async16(&bs[stage][rb * kBLd + cb],
-                 vb ? w + static_cast<size_t>(k0 + rb) * n + n0 + cb : w, vb);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
   const int nk = (k + kGK - 1) / kGK;
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load((kt + 1) & 1, (kt + 1) * kGK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kGWgs);
     }
-    __syncthreads();
-    const __nv_bfloat16* at = as[kt & 1];
-    const __nv_bfloat16* bt = bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < kGK; ks += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], at + (wm * 32 + mi * 16 + (lane & 15)) * kALd +
-                                ks + (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, bt + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kBLd +
-                   wn * 64 + (2 * nj + (lane >> 4)) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], b[2], b[3]);
-        }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kGWgs) {               // the producer warp
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kGStages;
+        mbar_wait(&empty[st], ((kt / kGStages) & 1) ^ 1);
+        uint8_t* dst = tiles + st * kGStage;
+        mbar_expect_tx(&full[st], kGStage);
+        tma_load_2d(dst, &ta, &full[st], kt * kGK, m0);
+        tma_load_2d(dst + kGABytes, &tw, &full[st], n0, kt * kGK);
+        tma_load_2d(dst + kGABytes + kGBBox, &tw, &full[st], n0 + 64,
+                    kt * kGK);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  const int wg = warp >> 2;
+  float acc[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % kGStages;
+    mbar_wait(&full[st], (kt / kGStages) & 1);
+    const uint8_t* at = tiles + st * kGStage + wg * (64 * 128);
+    const uint8_t* bt = tiles + st * kGStage + kGABytes;
+    wgmma_fence();
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+    for (int kk = 0; kk < kGK / 16; ++kk)
+      wgmma_ss_n128<1>(acc, gmma_desc(at + kk * 32, 16, 1024, 1),
+                       gmma_desc(bt + kk * 16 * 128, kGBBox, 1024, 1), 1);
+    wgmma_commit();
+    wgmma_wait<1>();                     // k-tile kt - 1 is done with its stage
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kGStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs<64>(acc);
+
+  const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int row = m0 + wm * 32 + mi * 16 + g + hr * 8;
-        const int col = n0 + wn * 64 + ni * 8 + 2 * tq;
-        if (row >= m || col >= n) continue;       // n even: col + 1 < n
-        const size_t o = static_cast<size_t>(row) * n + col;
-        float v0 = acc[mi][ni][2 * hr] + bias[col];
-        float v1 = acc[mi][ni][2 * hr + 1] + bias[col + 1];
-        if (kEpi == kFEpiResidual) {
-          v0 = __bfloat162float(resid[o]) + v0;
-          v1 = __bfloat162float(resid[o + 1]) + v1;
-        }
-        *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v0, v1);
+  for (int j = 0; j < kGN / 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + wg * 64 + (warp & 3) * 16 + g + hr * 8;
+      const int col = n0 + j * 8 + 2 * tq;
+      if (row >= m || col >= n) continue;         // n even: col + 1 < n
+      const size_t o = static_cast<size_t>(row) * n + col;
+      float v0 = acc[j * 4 + 2 * hr] + bias[col];
+      float v1 = acc[j * 4 + 2 * hr + 1] + bias[col + 1];
+      if (kEpi == kFEpiResidual) {
+        v0 = __bfloat162float(resid[o]) + v0;
+        v1 = __bfloat162float(resid[o + 1]) + v1;
       }
+      *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(v0, v1);
+    }
+}
+
+template <int kEpi>
+int gemm_bf16(const void* a, const void* w, int m, int n, int k,
+              const float* bias, const void* resid, void* out,
+              cudaStream_t st) {
+  CUtensorMap ta, tw;
+  const uint64_t adims[2] = {static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(m)};
+  const uint64_t astride[1] = {static_cast<uint64_t>(k) * 2};
+  const uint32_t abox[2] = {kGK, kGM};
+  int e = encode_bf16_map(&ta, a, 2, adims, astride, abox);
+  if (e) return e;
+  const uint64_t wdims[2] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k)};
+  const uint64_t wstride[1] = {static_cast<uint64_t>(n) * 2};
+  const uint32_t wbox[2] = {64, kGK};
+  e = encode_bf16_map(&tw, w, 2, wdims, wstride, wbox);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      gemm_wgmma_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kGSmem));
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  dim3 grid((n + kGN - 1) / kGN, (m + kGM - 1) / kGM);
+  gemm_wgmma_kernel<kEpi><<<grid, 128 * kGWgs + 32, kGSmem, st>>>(
+      ta, tw, m, n, k, bias, static_cast<const __nv_bfloat16*>(resid),
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- f32 GEMM ------------------------------------------------------------------
@@ -217,19 +248,14 @@ int gemm_float(const void* a, const void* w, int m, int n, int k,
                cudaStream_t st) {
   if (m == 0) return 0;
   if constexpr (sizeof(T) == 2) {
-    dim3 grid((n + kGN - 1) / kGN, (m + kGM - 1) / kGM);
-    gemm_bf16_kernel<kEpi><<<grid, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(w), m, n, k, bias,
-        static_cast<const __nv_bfloat16*>(resid),
-        static_cast<__nv_bfloat16*>(out));
+    return gemm_bf16<kEpi>(a, w, m, n, k, bias, resid, out, st);
   } else {
     dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
     gemm_f32_kernel<kEpi><<<grid, 256, 0, st>>>(
         static_cast<const float*>(a), static_cast<const float*>(w), m, n, k,
         bias, static_cast<const float*>(resid), static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -1,7 +1,10 @@
 // The key-tiled SDPA core shared by kernels D, E and F (attention.cu):
 //     o = softmax(q k^T * scale) v      per (image, head), any sequence T
+// It replaces the SDPA inside yolov8_vit_tpu/ops/attention.py
+// `_attn_kernel` (F), `_attn_block_kernel` (E) and `_attn_block_kernel_i8`
+// (D).
 //
-// Rounding points follow the TPU kernels (yolov8_vit_tpu/ops/attention.py):
+// Rounding points follow the TPU kernels:
 //   prescale = 1 (`_sdpa_per_head`, kernels D and E): q * scale rounded to
 //     the activation dtype, then scores q.k in f32;
 //   prescale = 0 (`_attn_kernel`, kernel F): scores q.k in f32, times the
@@ -10,22 +13,48 @@
 //   normalised in f32 and THEN rounded to the dtype, P.V accumulated in f32
 //   and rounded to the dtype.
 // An online softmax that divides at the end would round P at another
-// point, so the core is two passes over the key tiles: pass 1 takes each
+// point, so the core is two passes over 64-key tiles: pass 1 takes each
 // row's max and sum of exponentials (the sum rescaled as the max grows),
 // pass 2 recomputes the scores, forms p, rounds it and accumulates P.V.
 // K and V of one head at T = 785 (201 KB in bf16) do not fit a CTA, so
-// both passes stream 64-key tiles through shared memory; ragged query and
-// key tiles are zero-filled and their keys masked.
+// both passes stream the tiles through shared memory.
 //
-// bf16: one CTA of 4 warps per 64 query rows of one (head, image); each
-// warp owns 16 rows.  Q.K^T and P.V run on the tensor cores
-// (mma.sync.m16n8k16, bf16 operands, f32 accumulation); the score
-// fragment becomes P's A fragment in registers, V's B fragment comes from
-// ldmatrix.trans.  f32: CUDA cores, one CTA of 8 warps per 32 query rows,
-// one warp per row at a time, lanes over keys for the scores and over
-// head columns for P.V.
+// Bound on the H100 at (64, 785, 12, 64), bf16: the products are 4 B H T^2
+// hd = 0.121 TFLOP (0.12 ms at 989 TFLOP/s), 1.5x that with pass 2's
+// recomputed scores (0.18 ms); q, k, v and o are 62 MB (0.02 ms).  The
+// exponentials set a floor of their own: 473 M scores, two ex2 each (one
+// a pass), on 16 special-function lanes an SM: about 0.23-0.26 ms at
+// 1.98-1.75 GHz.  The softmax arithmetic, not the products, may set the
+// pace.
+//
+// bf16 design (sm_90a): a CTA holds 64 query rows of one (image, head) in
+// one consumer warpgroup, plus one producer warp.  The producer's one
+// thread streams K tiles (pass 1), then K and V tiles (pass 2), through
+// a ring of kSdpaStages stages in shared memory with TMA (3-D tensor maps
+// over (feature, token, image): keys past T read as zeros, never as
+// another image's rows); each stage has a `full` mbarrier (TMA bytes) and
+// an `empty` one (one arrival per consumer warp).  The consumer warpgroup
+// keeps its Q rows in registers as the A operand (rounded as prescale
+// asks), and runs S = Q K^T as wgmma m64n64k16 with K from shared memory
+// (K-major) and P V as wgmma
+// m64n{hd}k16 with P packed from the S accumulator into bf16 A registers
+// and V from shared memory (MN-major).  The exponent is one FMA, e =
+// ex2.approx(s c - m c) with c = scale log2(e); p is e times one IEEE
+// reciprocal of the row sum (no division per element); only the tile that
+// crosses t_real is masked.
+// What sets the pace is how many warpgroups an SM holds: a warpgroup
+// waits on its own wgmma before its softmax, and the other warpgroups
+// fill that time.  64-row CTAs at 128 registers fit three an SM; 128-row
+// CTAs (two consumer warpgroups) fit two an SM only by spilling, and were
+// slower at 785 tokens although they read each K/V tile half as often
+// (PERF.md).
+//
+// f32: CUDA cores, one CTA of 8 warps per 32 query rows, one warp per row
+// at a time, lanes over keys for the scores and over head columns for
+// P.V, expf and IEEE division as the plain version.
 #pragma once
 
+#include "hopper.cuh"
 #include "int8_common.cuh"
 
 namespace {
@@ -49,94 +78,98 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return a | (b << 16);
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- bf16: wgmma + TMA -------------------------------------------------------
+constexpr int kSdpaStages = 4;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// ---- bf16, tensor cores ----------------------------------------------------
-constexpr int kBf16QRows = 64;   // 4 warps x 16 rows
-
-// Rows k0 .. k0 + 63 of one head's K (or V) into a (64, HD + 8) tile,
-// 16-byte chunks, rows >= t zero-filled.
 template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int k0, int t, int ld) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < kKeyTile * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, ch = i - r * kChunks;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (k0 + r < t)
-      val = *reinterpret_cast<const int4*>(
-          src + static_cast<size_t>(k0 + r) * ld + ch * 8);
-    *reinterpret_cast<int4*>(dst + r * (HD + 8) + ch * 8) = val;
-  }
-}
+struct KvTile {
+  static constexpr int kRowBytes = 2 * HD;             // one key's head slice
+  static constexpr int kBytes = kKeyTile * kRowBytes;  // a K or a V tile
+  static constexpr int kStage = 2 * kBytes;            // K | V
+  static constexpr unsigned kGroup = 8 * kRowBytes;    // 8 rows: the SBO
+  static constexpr uint64_t kLayout = gmma_layout(kRowBytes);
+  static constexpr size_t kSmem =
+      kSdpaStages * kStage + 1024 + 2 * kSdpaStages * sizeof(uint64_t);
+};
 
-// s (16 rows x 64 keys of this warp) = Q.K^T over the tile in `ks`, scaled
-// (prescale == 0) and masked.
+// s (64 rows of this warpgroup x 64 keys; 16 rows a warp, mma.sync's C
+// layout) = Q.K^T over the K tile at `ks`, keys >= t_real masked; the
+// scale of prescale == 0 is left to the exponent (see sdpa_wgmma_kernel).
+// Returns after the wgmma has read the tile.
 template <int HD>
 __device__ __forceinline__ void scores_bf16(float (*s)[4],
                                             const uint32_t (*qf)[4],
-                                            const __nv_bfloat16* ks, int k0,
-                                            const SdpaArgs& a) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+                                            const uint8_t* ks, int k0,
+                                            int t_real) {
+  using L = KvTile<HD>;
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const __nv_bfloat16* kr = ks + (j * 8 + g) * (HD + 8) + 2 * tq;
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_rs<64, 0>(&s[0][0], qf[kk],
+                    gmma_desc(ks + kk * 32, 16, L::kGroup, L::kLayout),
+                    kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<32>(&s[0][0]);
+  if (k0 + kKeyTile <= t_real) return;
+  const int tq = threadIdx.x & 3;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      mma_bf16(s[j], qf[kk], bf16_pair(kr + kk * 16),
-               bf16_pair(kr + kk * 16 + 8));
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (!a.prescale) s[j][e] = s[j][e] * a.scale;
-      if (k0 + j * 8 + 2 * tq + (e & 1) >= a.t_real) s[j][e] = -INFINITY;
-    }
-  }
+    for (int e = 0; e < 4; ++e)
+      if (k0 + j * 8 + 2 * tq + (e & 1) >= t_real) s[j][e] = -INFINITY;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-sdpa_bf16_kernel(SdpaArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kKeyTile * (HD + 8)];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKeyTile * (HD + 8)];
+__global__ void __launch_bounds__(128 + 32, 3)
+sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, SdpaArgs a) {
+  using L = KvTile<HD>;
+  extern __shared__ uint8_t sdpa_smem[];
+  uint8_t* tiles = align_1024(sdpa_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kSdpaStages * L::kStage);
+  uint64_t* empty = full + kSdpaStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
   const int h = blockIdx.y, img = blockIdx.z;
+  const int nk = (a.t + kKeyTile - 1) / kKeyTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSdpaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                       // the producer warp
+    if (lane == 0) {
+      for (int i = 0; i < 2 * nk; ++i) {   // pass 1: K; pass 2: K and V
+        const int st = i % kSdpaStages;
+        mbar_wait(&empty[st], ((i / kSdpaStages) & 1) ^ 1);
+        const bool pass2 = i >= nk;
+        const int k0 = (pass2 ? i - nk : i) * kKeyTile;
+        uint8_t* dst = tiles + st * L::kStage;
+        mbar_expect_tx(&full[st], pass2 ? 2 * L::kBytes : L::kBytes);
+        tma_load_3d(dst, &tk, &full[st], h * HD, k0, img);
+        if (pass2)
+          tma_load_3d(dst + L::kBytes, &tv, &full[st], h * HD, k0, img);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = blockIdx.x * 64 + warp * 16 + g, r1 = r0 + 8;
   const size_t base = static_cast<size_t>(img) * a.bstride + h * HD;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + base;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + base;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + base;
-  const int r0 = blockIdx.x * kBf16QRows + warp * 16 + g, r1 = r0 + 8;
 
   // Q's A fragments for the whole head dim, rounded as the TPU kernel
   // rounds q * scale when prescale is set
@@ -164,12 +197,17 @@ sdpa_bf16_kernel(SdpaArgs a) {
     }
   }
 
+  // exponents as one FMA: e = 2^(s c - m c), c = scale log2(e) (F: the
+  // scale is applied here, m is the max of the unscaled scores; D and E:
+  // c = log2(e))
+  const float c = (a.prescale ? 1.f : a.scale) * kLog2e;
   float s[8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < a.t; k0 += kKeyTile) {            // pass 1
-    load_tile_bf16<HD>(ks, k, k0, a.t, a.ld);
-    __syncthreads();
-    scores_bf16<HD>(s, qf, ks, k0, a);
+  for (int i = 0; i < nk; ++i) {                           // pass 1
+    const int st = i % kSdpaStages;
+    mbar_wait(&full[st], (i / kSdpaStages) & 1);
+    scores_bf16<HD>(s, qf, tiles + st * L::kStage, i * kKeyTile, a.t_real);
+    if (lane == 0) mbar_arrive(&empty[st]);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       float mx = -INFINITY;
@@ -178,48 +216,55 @@ sdpa_bf16_kernel(SdpaArgs a) {
         mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[rr], mx);
+      const float mn = fmaxf(m[rr], mx), mc = mn * c;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        sum += expf(s[j][2 * rr] - mn) + expf(s[j][2 * rr + 1] - mn);
+        sum += ex2_approx(__fmaf_rn(s[j][2 * rr], c, -mc))
+               + ex2_approx(__fmaf_rn(s[j][2 * rr + 1], c, -mc));
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[rr] = (m[rr] == -INFINITY ? 0.f : l[rr] * expf(m[rr] - mn)) + sum;
+      // the first tile holds key 0, so mn is finite; m = -inf gives 0
+      l[rr] = l[rr] * ex2_approx(__fmaf_rn(m[rr], c, -mc)) + sum;
       m[rr] = mn;
     }
-    __syncthreads();
   }
 
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  const float mc[2] = {m[0] * c, m[1] * c};
   float o[HD / 8][4];
 #pragma unroll
   for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
-  for (int k0 = 0; k0 < a.t; k0 += kKeyTile) {            // pass 2
-    load_tile_bf16<HD>(ks, k, k0, a.t, a.ld);
-    load_tile_bf16<HD>(vs, v, k0, a.t, a.ld);
-    __syncthreads();
-    scores_bf16<HD>(s, qf, ks, k0, a);
+  for (int i = 0; i < nk; ++i) {                           // pass 2
+    const int it = nk + i, st = it % kSdpaStages;
+    mbar_wait(&full[st], (it / kSdpaStages) & 1);
+    const uint8_t* stage = tiles + st * L::kStage;
+    scores_bf16<HD>(s, qf, stage, i * kKeyTile, a.t_real);
+    // P's A fragments, 16 keys a k-step: p = e * (1 / l), rounded once
+    uint32_t pf[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {            // 16 keys per k-step
-      uint32_t pf[4];
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const float* sj = s[2 * kk + half];
-        pf[half * 2] = pack_bf16(__fdiv_rn(expf(sj[0] - m[0]), l[0]),
-                                 __fdiv_rn(expf(sj[1] - m[0]), l[0]));
-        pf[half * 2 + 1] = pack_bf16(__fdiv_rn(expf(sj[2] - m[1]), l[1]),
-                                     __fdiv_rn(expf(sj[3] - m[1]), l[1]));
-      }
-      const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int nb = 0; nb < HD / 8; nb += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + key * (HD + 8) + (nb + (lane >> 4)) * 8);
-        mma_bf16(o[nb], pf, b[0], b[1]);
-        mma_bf16(o[nb + 1], pf, b[2], b[3]);
+        for (int rr = 0; rr < 2; ++rr)
+          pf[kk][half * 2 + rr] = pack_bf16(
+              __fmul_rn(ex2_approx(__fmaf_rn(sj[2 * rr], c, -mc[rr])),
+                        rl[rr]),
+              __fmul_rn(ex2_approx(__fmaf_rn(sj[2 * rr + 1], c, -mc[rr])),
+                        rl[rr]));
       }
-    }
-    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<HD, 1>(&o[0][0], pf[kk],
+                      gmma_desc(stage + L::kBytes + kk * 16 * L::kRowBytes,
+                                L::kGroup, L::kGroup, L::kLayout), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(&o[0][0]);
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
@@ -234,6 +279,31 @@ sdpa_bf16_kernel(SdpaArgs a) {
       *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * tq) =
           pack_bf16(o[nb][2 * rr], o[nb][2 * rr + 1]);
   }
+}
+
+template <int HD>
+int launch_sdpa_bf16(const SdpaArgs& a, int nb, cudaStream_t st) {
+  using L = KvTile<HD>;
+  // (feature, token, image) over the k or v base; the box is one head's
+  // slice of 64 keys of one image
+  const uint64_t dims[3] = {static_cast<uint64_t>(a.heads) * HD,
+                            static_cast<uint64_t>(a.t),
+                            static_cast<uint64_t>(nb)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(a.ld) * 2,
+                               static_cast<uint64_t>(a.bstride) * 2};
+  const uint32_t box[3] = {HD, kKeyTile, 1};
+  CUtensorMap tk, tv;
+  int e = encode_bf16_map(&tk, a.k, 3, dims, strides, box);
+  if (e) return e;
+  e = encode_bf16_map(&tv, a.v, 3, dims, strides, box);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      sdpa_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  dim3 grid((a.t + 63) / 64, a.heads, nb);
+  sdpa_wgmma_kernel<HD><<<grid, 128 + 32, L::kSmem, st>>>(tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- f32, CUDA cores -------------------------------------------------------
@@ -360,28 +430,25 @@ sdpa_f32_kernel(SdpaArgs a) {
 
 template <int HD>
 int launch_sdpa_hd(const SdpaArgs& a, int dtype, int nb, cudaStream_t st) {
-  if (dtype == kBF16) {
-    dim3 grid((a.t + kBf16QRows - 1) / kBf16QRows, a.heads, nb);
-    sdpa_bf16_kernel<HD><<<grid, 128, 0, st>>>(a);
-  } else {
-    constexpr size_t smem = sdpa_f32_smem<HD>();
-    cudaError_t e = cudaFuncSetAttribute(
-        sdpa_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((a.t + kF32QRows - 1) / kF32QRows, a.heads, nb);
-    sdpa_f32_kernel<HD><<<grid, 32 * kF32Warps, smem, st>>>(a);
-  }
+  if (dtype == kBF16) return launch_sdpa_bf16<HD>(a, nb, st);
+  constexpr size_t smem = sdpa_f32_smem<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      sdpa_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.t + kF32QRows - 1) / kF32QRows, a.heads, nb);
+  sdpa_f32_kernel<HD><<<grid, 32 * kF32Warps, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The core over nb images; head dims 16, 32 and 64 (every ViT the package
-// defines has 64; the small test shapes use 16 and 32).
-int launch_sdpa(const SdpaArgs& a, int dtype, int nb, int hd,
-                cudaStream_t st) {
+// defines has 64; the small test shapes use 16 and 32).  Keys at or past
+// min(t_real, t) are masked.
+int launch_sdpa(SdpaArgs a, int dtype, int nb, int hd, cudaStream_t st) {
   if (nb == 0 || a.t == 0) return 0;
   if (dtype != kBF16 && dtype != kF32)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.t_real = a.t_real < a.t ? a.t_real : a.t;
   switch (hd) {
     case 16: return launch_sdpa_hd<16>(a, dtype, nb, st);
     case 32: return launch_sdpa_hd<32>(a, dtype, nb, st);

@@ -9,8 +9,9 @@
 
 On the card each is a chain around the key-tiled SDPA core of
 csrc/sdpa.cuh (csrc/attention.cu; the source notes give the bounds on the
-H100 and the design); CPU tensors run the plain versions below.  The SDPA
-rounds as the TPU kernels do.  D and E (`sdpa_heads_plain`): q * hd^-0.5
+H100 and the design: at bf16 the core and E's GEMMs run on wgmma with TMA
+copies); CPU tensors run the plain versions below.  The SDPA rounds as
+the TPU kernels do.  D and E (`sdpa_heads_plain`): q * hd^-0.5
 rounded to the dtype, scores and softmax in f32, probabilities rounded to
 the dtype, P.V accumulated in f32 and rounded to the dtype.  F
 (`flash_attention_plain`): f32 scores times the f32 scale, probabilities
@@ -166,9 +167,11 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
 
     wqkv (D, 3D) and wproj (D, D) in the JAX (in, out) layout; the kernel
     reads them in x's dtype, so a caller that runs many forwards passes
-    them cast once (models/vit.py caches the cast per load).  Biases and
-    LN params are used in f32.  t_real < T masks key columns >= t_real.
-    CUDA tensors launch kernel E; CPU tensors run the plain version."""
+    them cast once (models/vit.py caches the cast per load); at bf16 the
+    kernel reads them through TMA, which needs 16-byte aligned bases (a
+    view off that raises).  Biases and LN params are used in f32.  t_real
+    < T masks key columns >= t_real.  CUDA tensors launch kernel E; CPU
+    tensors run the plain version."""
     b, t, d = x.shape
     dt = x.dtype
     f32 = torch.float32
@@ -221,19 +224,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _strided_ok(t: torch.Tensor, hd: int) -> bool:
     """A (B, T, H, hd) view the kernel reads in place: unit stride in the
-    head dim, heads adjacent, 16-byte aligned rows."""
+    head dim, heads adjacent, rows and images apart and not overlapping,
+    16-byte aligned base and strides (TMA's rules for k and v)."""
     es = t.element_size()
+    _, n, heads, _ = t.shape
     return (t.stride(3) == 1 and t.stride(2) == hd
             and t.data_ptr() % 16 == 0 and (t.stride(1) * es) % 16 == 0
-            and (t.stride(0) * es) % 16 == 0)
+            and (t.stride(0) * es) % 16 == 0
+            and t.stride(1) >= heads * hd and t.stride(0) >= n * t.stride(1))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over (B, T, H, D) inputs -> (B, T, H, D),
     the JAX signature.  q, k and v may be strided views of one packed
-    (B, T, 3, H, D) qkv.  CUDA tensors launch kernel F; CPU tensors run
-    the plain version."""
+    (B, T, 3, H, D) qkv, read in place; a view the kernel cannot read so
+    (`_strided_ok`: TMA's 16-byte rules, heads adjacent, rows apart), or
+    views with different row or image strides, are copied contiguous
+    first.  CUDA tensors launch kernel F; CPU tensors run the plain
+    version."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v)
     b, t, heads, hd = q.shape
