@@ -8,7 +8,7 @@ Phases (any failure exits non-zero):
   2. build the CUDA kernels A-J from yolov8_vit_tpu_torch/csrc (nvcc, one
      process per source, in parallel) and print the build seconds and
      ptxas's registers, shared memory and spills of each kernel of the
-     attention library (D, E, F);
+     quant_mlp library (C, G, H) and the attention library (D, E, F);
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: A and B (NMS) bit-exact on dense inputs with
      score ties and IoU-exactly-at-threshold pairs; C and D (W8A8 blocks,
@@ -17,9 +17,10 @@ Phases (any failure exits non-zero):
      crops within FLOAT_BF16_TOL and f32 at 16 crops within F32_TOL; time
      each (CUDA events) beside its bound, its plain version and, for F,
      PyTorch's scaled_dot_product_attention; E beside torch.addmm at its
-     two GEMM shapes; print, on a line of their own and labelled as not
-     measured, D's, E's and F's times before their wgmma redesign and the
-     SDPA core's exponential floor;
+     two GEMM shapes, C and D beside torch._int_mm (cuBLASLt int8, s32
+     out) at theirs; print, on a line of their own and labelled as not
+     measured, the times of C-H before their wgmma redesign and the SDPA
+     core's exponential floor;
   4. small-input checks: the whole pipeline on the card against the same
      pipeline on the CPU (plain versions), f32, integer outputs equal, with
      a w8a ViT (kernels C, D) and a float one (kernel E);
@@ -46,8 +47,11 @@ Phases (any failure exits non-zero):
      5's YOLOv8-s forward (batch 32, TF32 over bf16-valued operands) held
      against the same conv in f64 (CONV_TOL), and the card's stem against
      the same weights and frames on the CPU (STEM_DIFF_SHARE);
-  10. torch.profiler over the ViT-B/16 and ViT-B/8 fused steps; E's
-     device time a call split into LN, QKV GEMM, SDPA and proj GEMM;
+  10. torch.profiler over the ViT-B/16 w8a, ViT-B/8 float and ViT-B/8 w8a
+     fused steps; E's device time a call split into LN, QKV GEMM, SDPA and
+     proj GEMM; C's (12608 rows) and D's (T = 197 and 785, 64 crops),
+     profiled a call at a time on phase 3's inputs, split into LN +
+     quantize, each GEMM pass, the SDPA and the heads' quantize;
   11. kernels G-J, the public functions that no entry point of the package
      reaches, each held against its plain version and timed: G
      (`quant_dense_fused`) at 64 x 197 rows with the four ViT-B (K, N)
@@ -98,11 +102,14 @@ BATCHES = 4                                    # timed frame batches
 # after each phase)
 ENGINE_DIR = os.path.join(HERE, "chip_smoke_out", "engines")
 
-# the kernels' times before the SDPA core and E's GEMMs moved to wgmma
-# (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W): printed for
+# the kernels' times before their wgmma redesign (PERF.md's kernel table;
+# NVIDIA H100 80GB HBM3, 700.00 W): E and F on mma.sync, C, D, G and H on
+# the mma.sync int8 GEMM (D's SDPA already on wgmma); printed for
 # reference beside this run's, never as a measurement of it
-PREV_MS = {"attn_block_i8": 0.650, "attn_block_i8_t785": 3.857,
-           "attn_block": 3.478, "flash_attention": 2.421}
+PREV_MS = {"quant_mlp_ln": 0.741, "attn_block_i8": 0.462,
+           "attn_block_i8_t785": 2.066, "attn_block": 3.478,
+           "flash_attention": 2.421, "quant_dense": 0.345,
+           "quant_mlp": 0.737}
 # special-function (ex2) lanes of an H100 SM, and its SMs
 SFU_PER_SM, SMS = 16, 132
 
@@ -223,11 +230,13 @@ def _ptxas_summary(log: str) -> list[str]:
             cand = mangled[st:st + n]
             if cand.endswith("_kernel") and cand.isidentifier():
                 rest = mangled[st + n:mangled.find("Ev", st + n)]
-                args = re.findall(r"Li(\d+)E", rest)
+                args = re.findall(r"L[ib](\d+)E", rest)
                 if "bfloat16" in rest:
                     args.insert(0, "bf16")
                 elif rest.startswith("If"):
                     args.insert(0, "f32")
+                elif rest.startswith("Ia"):
+                    args.insert(0, "i8")
                 return f"{cand}<{', '.join(args)}>" if args else cand
         return mangled
 
@@ -261,6 +270,21 @@ def _time_ms(fn, reps: int) -> float:
 def _bound_ms(nbytes: float, op_ms: float) -> tuple[float, str]:
     b_ms = nbytes / PEAK_BYTES_S * 1e3
     return (b_ms, "bytes") if b_ms >= op_ms else (op_ms, "operations")
+
+
+def _int_mm_ms(torch, m: int, shapes: dict, reps: int = 10) -> dict:
+    """torch._int_mm (cuBLASLt int8, s32 out) timed at a kernel's GEMM
+    shapes {name: (k, n)} on m rows, the weight K-major as the kernels
+    read it: a yardstick the port never calls."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for name, (k, n) in shapes.items():
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=g)
+        w_t = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                            device="cuda", generator=g)
+        out[name] = _time_ms(lambda: torch._int_mm(a, w_t.t()), reps)
+    return out
 
 
 def _close(torch, name, got, ref, tol, f32_ref=None, stats=None) -> float:
@@ -341,7 +365,11 @@ def _nms_inputs(torch, b, n, c, seed):
     return boxes, scores
 
 
-def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
+def check_kernels(torch, ops, mlp_rows: int,
+                  crops: int) -> tuple[list[dict], dict]:
+    """Phase 3 at the ViT-B/16 path's shapes: A, B, C, D.  Returns the
+    kernel rows and, for phase 10's profiler, a call of C and of D on
+    their inputs here."""
     from yolov8_vit_tpu_torch.ops.attention import attn_block_i8_plain
     from yolov8_vit_tpu_torch.ops.nms import (mask_scan_plain,
                                               nms_argmax_ml_plain)
@@ -429,7 +457,10 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
                      replaces="yolov8_vit_tpu/ops/quant.py:240",
                      max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                      bound_by=by, library_ms=None,
+                     int_mm_ms=_int_mm_ms(torch, mlp_rows, {
+                         "fc1": (d, hid), "fc2": (hid, d)}),
                      ms_transposing_per_call=c_percall_ms))
+    c_args, c_wt = args, wt
 
     xa = torch.randn(crops, t, d, generator=g).to(dev, torch.bfloat16)
     lns, lnb = ln()
@@ -459,8 +490,13 @@ def check_kernels(torch, ops, mlp_rows: int, crops: int) -> list[dict]:
                      replaces="yolov8_vit_tpu/ops/attention.py:162",
                      max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                      bound_by=by, library_ms=None,
+                     int_mm_ms=_int_mm_ms(torch, m, {
+                         "qkv": (d, 3 * d), "proj": (d, d)}),
                      ms_transposing_per_call=d_percall_ms))
-    return rows
+    calls = {"quant_mlp_ln": lambda: ops.quant_mlp_ln_fused(*c_args, **c_wt),
+             "attn_block_i8": lambda: ops.fused_attention_block_i8(*args,
+                                                                   **wt)}
+    return rows, calls
 
 
 def check_attention_b8(torch, ops, crops: int, f32_crops: int):
@@ -469,7 +505,8 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
     FLOAT_BF16_TOL (D within KERNEL_TOL: its int8 codes can flip at a .5
     boundary in any dtype) and timed; f32 at `f32_crops` held within
     F32_TOL (D within KERNEL_TOL).  Returns the kernel rows, the f32
-    errors and the bf16 statistics of E and F."""
+    errors, the bf16 statistics of E and F, and a call of D at 785 tokens
+    on its bf16 inputs here for phase 10's profiler."""
     from yolov8_vit_tpu_torch.ops.attention import (
         attn_block_i8_plain, flash_attention_plain,
         fused_attention_block_plain)
@@ -478,7 +515,7 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
     g = torch.Generator().manual_seed(5)
     d, t, heads = 768, 785, 12
     hd = d // heads
-    rows, f32_err, bf16_stats = [], {}, {}
+    rows, f32_err, bf16_stats, calls = [], {}, {}, {}
 
     def ln():
         return ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
@@ -520,7 +557,11 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
                          source="yolov8_vit_tpu_torch/csrc/attention.cu",
                          replaces="yolov8_vit_tpu/ops/attention.py:162",
                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound, bound_by=by, library_ms=None))
+                         bound_ms=bound, bound_by=by, library_ms=None,
+                         int_mm_ms=_int_mm_ms(torch, m, {
+                             "qkv": (d, 3 * d), "proj": (d, d)})))
+        calls["attn_block_i8_t785"] = \
+            lambda a=args: ops.fused_attention_block_i8(*a, heads=heads)
 
     # ---- E --------------------------------------------------------------
     lns, lnb = ln()
@@ -593,7 +634,7 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
                          max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                          bound_ms=bound, bound_by=by, library_ms=lib_ms,
                          exp_floor_ms=_exp_floor_ms(n * heads * t * t)))
-    return rows, f32_err, bf16_stats
+    return rows, f32_err, bf16_stats, calls
 
 
 def small_input_check(torch, quant: str) -> dict:
@@ -761,11 +802,12 @@ def b8_float_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
 
 
 def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
-                   frames) -> dict:
+                   frames) -> tuple[dict, object]:
     """Phase 7: make_runner on engine dirs the port's save_engine wrote:
     phase 6's fitted detector as a detect engine, and phase 6's ViT-B/8
     weights as a classify engine of each int8 mode (w8a and w8
-    pre-quantized, dynamic stored bf16), one batch each."""
+    pre-quantized, dynamic stored bf16), one batch each.  Returns the
+    report and the w8a runner (phase 10 profiles it)."""
     import numpy as np
     from yolov8_vit_tpu_torch.config import DetectConfig
     from yolov8_vit_tpu_torch.models.vit import ViTSpec
@@ -785,7 +827,7 @@ def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
     }
     root = os.path.join(ENGINE_DIR, "vit_b8")
     shutil.rmtree(root, ignore_errors=True)
-    out = {}
+    out, w8a_runner = {}, None
     try:
         det = save_engine(os.path.join(root, "detect"), "detect", det_tree,
                           {"detect_cfg": dataclasses.asdict(DetectConfig())})
@@ -820,11 +862,13 @@ def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
             out[path] = {"launches": launches, "kept": kept,
                          "fused_step_ms": _time_ms(
                              lambda: runner._fn(frames), 3)}
+            if quant == "w8a":
+                w8a_runner = runner
             del runner
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return out
+    return out, w8a_runner
 
 
 def engine_phase(torch, ops, vit_b8_tree: dict, b16_runner, b16_tree: dict,
@@ -999,6 +1043,19 @@ def detector_convs(torch, det, frames, ref_frames: int = 8,
 # time a call
 E_PARTS = {"ln": r"ln_rows_kernel", "qkv_gemm": r"gemm_wgmma_kernel<0>",
            "sdpa": r"sdpa_wgmma_kernel", "proj_gemm": r"gemm_wgmma_kernel<1>"}
+# C's and D's launches by kernel name (csrc/int8_common.cuh: the row
+# kernel's flag is its LayerNorm; the int8 GEMM's arguments are its output
+# type and epilogue): the parts of a bf16 call's device time
+_LN_Q = r"ln_quant_rows_kernel<__nv_bfloat16, true>"
+C_PARTS = {"ln_quant": _LN_Q,
+           "fc1_amax": r"gemm_i8_wgmma_kernel<signed char, 3>",
+           "fc1_quant": r"gemm_i8_wgmma_kernel<signed char, 4>",
+           "fc2": r"gemm_i8_wgmma_kernel<__nv_bfloat16, 1>"}
+D_PARTS = {"ln_quant": _LN_Q,
+           "qkv_gemm": r"gemm_i8_wgmma_kernel<__nv_bfloat16, 0>",
+           "sdpa": r"sdpa_wgmma_kernel",
+           "heads_quant": r"ln_quant_rows_kernel<__nv_bfloat16, false>",
+           "proj_gemm": r"gemm_i8_wgmma_kernel<__nv_bfloat16, 1>"}
 
 
 def profile_step(torch, runner, frames, path: str) -> dict:
@@ -1035,6 +1092,35 @@ def profile_step(torch, runner, frames, path: str) -> dict:
     return {"device_us_per_step": busy_us / 2,
             "top": [(k[:60], round(us / 2, 1), n // 2) for k, us, n in rows[:12]],
             **({"attn_block_split_ms": e_split} if e_split else {})}
+
+
+def profile_parts(torch, fn, parts: dict, calls: int = 3) -> dict:
+    """torch.profiler over `calls` calls of one kernel wrapper: the device
+    ms a launch of each part (a regex on the kernel names), and the device
+    ms a call of all of them; raises where a part never ran."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = [(e.key, getattr(e, attr), e.count) for e in ka
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, attr) > 0]
+    out = {}
+    for part, name in parts.items():
+        hits = [(us, n) for k, us, n in rows if re.search(name, k)]
+        if not hits:
+            raise AssertionError(f"profile: no kernel matches {name} among "
+                                 f"{[k[:80] for k, _, _ in rows]}")
+        out[part] = sum(us for us, _ in hits) / sum(n for _, n in hits) / 1e3
+    out["call"] = sum(us for _, us, _ in rows) / calls / 1e3
+    return out
 
 
 def _equal(torch, name, got, ref) -> None:
@@ -1521,15 +1607,19 @@ def main() -> int:
     build_s = _build.build()
     print(f"build: {build_s:.1f} s (wall {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    ptxas = _ptxas_summary(_build.build_log("attention"))
-    print("ptxas, attention library (D, E, F):\n  " + "\n  ".join(ptxas),
-          flush=True)
+    ptxas = {}
+    for lib_name, what in (("quant_mlp", "C, G, H"), ("attention", "D, E, F")):
+        ptxas[lib_name] = _ptxas_summary(_build.build_log(lib_name))
+        print(f"ptxas, {lib_name} library ({what}):\n  "
+              + "\n  ".join(ptxas[lib_name]), flush=True)
 
     t0 = time.perf_counter()
-    rows = check_kernels(torch, ops, mlp_rows=64 * 197, crops=BATCH * BUDGET)
-    b8_rows, f32_err, bf16_stats = check_attention_b8(torch, ops, crops=BATCH * BUDGET,
-                                          f32_crops=16)
+    rows, part_calls = check_kernels(torch, ops, mlp_rows=64 * 197,
+                                     crops=BATCH * BUDGET)
+    b8_rows, f32_err, bf16_stats, b8_calls = check_attention_b8(
+        torch, ops, crops=BATCH * BUDGET, f32_crops=16)
     rows += b8_rows
+    part_calls.update(b8_calls)
     for r in rows:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -1539,14 +1629,16 @@ def main() -> int:
                  f"{r['ms_transposing_per_call']:.4f} ms)"
                  if "ms_transposing_per_call" in r else "")
               + (f" gemm_library_ms {r['gemm_library_ms']}"
-                 if "gemm_library_ms" in r else ""), flush=True)
+                 if "gemm_library_ms" in r else "")
+              + (f" int_mm_ms {r['int_mm_ms']}" if "int_mm_ms" in r else ""),
+              flush=True)
     # derived or copied numbers, kept out of the kernel rows
     reference = {"mma_sync_version_ms": PREV_MS, "exp_floor_ms": {
         r["name"]: r.pop("exp_floor_ms") for r in rows
         if "exp_floor_ms" in r}}
-    print("not measured in this run: D, E, F before wgmma (PERF.md) and "
-          f"the SDPA core's exponential floor: {json.dumps(reference)}",
-          flush=True)
+    print("not measured in this run: C-H before their wgmma redesign "
+          "(PERF.md) and the SDPA core's exponential floor: "
+          f"{json.dumps(reference)}", flush=True)
     print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
           f"{json.dumps(bf16_stats)}")
@@ -1568,8 +1660,8 @@ def main() -> int:
             paths["vit_b8_float"])
     frames = paths["vit_b8_float"]["frames"]
     t0 = time.perf_counter()
-    runs = b8_engine_runs(torch, ops, b8_tree["det"],
-                          b8_tree["vit"]["params"], frames)
+    runs, b8_w8a_runner = b8_engine_runs(torch, ops, b8_tree["det"],
+                                         b8_tree["vit"]["params"], frames)
     paths.update(runs)
     _report(f"ViT-B/8 engines through make_runner "
             f"({time.perf_counter() - t0:.1f} s)", runs)
@@ -1606,9 +1698,12 @@ def main() -> int:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
-    for name, runner in (("vit_b16_w8a", b16_runner),
-                         ("vit_b8_float", b8_runner)):
-        p = profile_step(torch, runner, paths[name].pop("frames"),
+    b16_frames = paths["vit_b16_w8a"].pop("frames")
+    b8_frames = paths["vit_b8_float"].pop("frames")
+    for name, runner, fr in (("vit_b16_w8a", b16_runner, b16_frames),
+                             ("vit_b8_float", b8_runner, b8_frames),
+                             ("vit_b8_w8a", b8_w8a_runner, b8_frames)):
+        p = profile_step(torch, runner, fr,
                          os.path.join(OUT_DIR, f"profile_{name}.txt"))
         # share of the (unprofiled) fused step the device spends in kernels
         p["busy_share"] = p["device_us_per_step"] / (
@@ -1621,12 +1716,18 @@ def main() -> int:
     if set(split) != set(E_PARTS):
         raise AssertionError(f"profile of the ViT-B/8 float step: E's parts "
                              f"{sorted(split)}, not {sorted(E_PARTS)}")
+    splits = {"attn_block": split}
+    for name, parts in (("quant_mlp_ln", C_PARTS), ("attn_block_i8", D_PARTS),
+                        ("attn_block_i8_t785", D_PARTS)):
+        splits[name] = profile_parts(torch, part_calls[name], parts)
+        print(f"profile of one {name} call, device ms: "
+              f"{json.dumps(splits[name])}", flush=True)
     kernels = []
     for r in rows:
         wrapper, path = ROW_WRAPPER[r["name"]]
         r = dict(r, launches=paths[path]["launches"][wrapper])
-        if r["name"] == "attn_block":
-            r["split_ms"] = split
+        if r["name"] in splits:
+            r["split_ms"] = splits[r["name"]]
         for extra in ("picks", "by_shape", "by_input", "shape",
                       "silu_max_abs_err", "ms_transposing_per_call"):
             r.pop(extra, None)
@@ -1637,7 +1738,7 @@ def main() -> int:
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "public_ops": gj, "service": service,
-                   "profile": prof, "ptxas_attention": ptxas,
+                   "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,
                    "total_s": time.perf_counter() - t_all}, f, indent=1)
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)

@@ -7,7 +7,7 @@ chip_smoke.py repeats these checks at the main path's shapes."""
 import pytest
 import torch
 
-from yolov8_vit_tpu_torch import ops
+from yolov8_vit_tpu_torch import _build, ops
 from yolov8_vit_tpu_torch.ops.attention import (attn_block_i8_plain,
                                                 flash_attention_plain,
                                                 fused_attention_block_plain)
@@ -15,6 +15,7 @@ from yolov8_vit_tpu_torch.ops.fused_region import region_b1b2_plain
 from yolov8_vit_tpu_torch.ops.nms import (mask_scan_plain, nms_argmax_ml_plain,
                                           nms_argmax_plain,
                                           single_label_candidates)
+from yolov8_vit_tpu_torch.ops import quant
 from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain, quant_mlp_plain,
                                             quant_mlp_ln_plain,
                                             quantize_weight)
@@ -217,6 +218,15 @@ def test_kernel_g_refuses_odd_k(dev):
         ops.quant_dense_fused(x, w, s, b)
 
 
+def test_kernel_g_refuses_n_off_8(dev):
+    """The output's rows are written by TMA, which takes 16-byte strides."""
+    g = _gen(8)
+    x = torch.randn(8, 32, generator=g).to(dev)
+    w, s, b = _w(g, 32, 20, dev)
+    with pytest.raises(ValueError):
+        ops.quant_dense_fused(x, w, s, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_h_matches_plain(dev, dtype):
     g = _gen(9)
@@ -274,3 +284,86 @@ def test_kernel_j_matches_plain(dev, shape):
     assert bool((d <= 0.05 * std + 2.0 ** -7 * ref.abs()).all()), \
         (float(d.max()), std)
     assert float(d.mean()) <= 0.005 * std, (float(d.mean()), std)
+
+
+# ---- C, D, G, H at ViT-B widths on the int8 wgmma GEMM ------------------------
+# rows of the main path: one crop, three crops (a ragged 256-row tile), and
+# the B/16 path's 64 crops of 197 tokens
+_VIT_ROWS = (197, 3 * 197, 64 * 197)
+_VIT_D, _VIT_HID = 768, 3072
+
+
+def _vit_ln(g, dev):
+    return ((1 + 0.1 * torch.randn(_VIT_D, generator=g)).to(dev),
+            (0.1 * torch.randn(_VIT_D, generator=g)).to(dev))
+
+
+@pytest.mark.parametrize("m", _VIT_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_c_matches_plain_at_vit_b(dev, dtype, m):
+    g = _gen(12)
+    x = torch.randn(m, _VIT_D, generator=g).to(dev, dtype)
+    args = (x, *_vit_ln(g, dev), *_w(g, _VIT_D, _VIT_HID, dev),
+            *_w(g, _VIT_HID, _VIT_D, dev))
+    _close(ops.quant_mlp_ln_fused(*args), quant_mlp_ln_plain(*args), dtype,
+           int8=True)
+
+
+@pytest.mark.parametrize("m", _VIT_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_h_matches_plain_at_vit_b(dev, dtype, m):
+    g = _gen(13)
+    h = torch.randn(m, _VIT_D, generator=g).to(dev, dtype)
+    res = torch.randn(m, _VIT_D, generator=g).to(dev, dtype)
+    args = (h, res, *_w(g, _VIT_D, _VIT_HID, dev),
+            *_w(g, _VIT_HID, _VIT_D, dev))
+    _close(ops.quant_mlp_fused(*args), quant_mlp_plain(*args), dtype,
+           int8=True)
+
+
+@pytest.mark.parametrize("crops,t", [(1, 197), (3, 197), (64, 197),
+                                     (8, 785)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_d_matches_plain_at_vit_b(dev, dtype, crops, t):
+    g = _gen(14)
+    x = torch.randn(crops, t, _VIT_D, generator=g).to(dev, dtype)
+    args = (x, *_vit_ln(g, dev), *_w(g, _VIT_D, 3 * _VIT_D, dev),
+            *_w(g, _VIT_D, _VIT_D, dev))
+    _close(ops.fused_attention_block_i8(*args, heads=12),
+           attn_block_i8_plain(*args, heads=12), dtype, int8=True)
+
+
+@pytest.mark.parametrize("m", [197, 64 * 197])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072),
+                                 (3072, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_g_bit_for_bit_at_vit_b(dev, dtype, k, n, m):
+    g = _gen(15)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    w, s, b = _w(g, k, n, dev)
+    got = ops.quant_dense_fused(x, w, s, b, w_t=w.t().contiguous())
+    ref = quant_dense_plain(x, w, s, b)
+    assert torch.equal(got, ref), (int((got != ref).sum()),
+                                   float((got.float() - ref.float())
+                                         .abs().max()))
+
+
+@pytest.mark.parametrize("m", [197, 3 * 197])
+def test_kernel_c_writes_no_row_past_m(dev, m):
+    """The 256-row tiles past m hold zero rows of the activations, whose
+    fc1 epilogue gives gelu(b1) != 0: the kernel must store none of them.
+    The output is a view whose tail (one whole row tile) holds a sentinel."""
+    g = _gen(16)
+    x = torch.randn(m, _VIT_D, generator=g).to(dev, torch.bfloat16)
+    lns, lnb = _vit_ln(g, dev)
+    w1, s1, b1 = _w(g, _VIT_D, _VIT_HID, dev)
+    w2, s2, b2 = _w(g, _VIT_HID, _VIT_D, dev)
+    buf = torch.full((m + 256, _VIT_D), 7.0, dtype=x.dtype, device=dev)
+    so, rc, out = quant._launch_mlp(
+        "kernel C", x, x, (lns, lnb), w1.t().contiguous(), s1, b1,
+        w2.t().contiguous(), s2, b2, 1e-6, out=buf[:m])
+    _build.check(so, rc, "kernel C")
+    torch.cuda.synchronize()
+    assert bool((buf[m:] == 7.0).all())
+    _close(out, quant_mlp_ln_plain(x, lns, lnb, w1, s1, b1, w2, s2, b2),
+           torch.bfloat16, int8=True)

@@ -156,3 +156,80 @@ def test_scales_divide_by_a_tensor_not_a_scalar():
     assert (x * np.float32(1 / 127.0) != want).any()
     _, s = quant.quantize_act(_t(x))
     np.testing.assert_array_equal(s.numpy(), want)
+
+
+def _two_pass_mlp_ln(x, lns, lnb, w1, s1, b1, w2, s2, b2, eps=1e-6,
+                     tile_m=256, tile_n=128):
+    """Kernel C's order on the card, in torch: fc1 computed twice by
+    128-column tiles over 256-row tiles whose rows past m are zeros (TMA's
+    fill; their row scale reads as 0), once for each row's amax (the max
+    of the tiles' maxima, padded rows masked) and once for the int8 codes
+    at the scale of that amax; then fc2 and the residual.  Returns the
+    output, the fc1 codes and their scales, and the padded rows' maxima."""
+    m = x.shape[0]
+    xf = x.to(torch.float32)
+    hq, sx = quant.quantize_act(quant.layernorm_f32(xf, lns, lnb, eps))
+    pad = -m % tile_m
+    hq = torch.cat([hq, hq.new_zeros(pad, hq.shape[1])])
+    sx = torch.cat([sx, sx.new_zeros(pad, 1)])
+
+    def fc1_tile(c0):
+        acc = quant.int8_matmul(hq, w1[:, c0:c0 + tile_n])
+        return quant.gelu_tanh(acc * sx * s1[None, c0:c0 + tile_n]
+                               + b1[None, c0:c0 + tile_n])
+
+    cols = range(0, w1.shape[1], tile_n)
+    maxima = torch.stack([fc1_tile(c0).abs().amax(dim=-1) for c0 in cols])
+    amax = maxima.amax(dim=0)
+    scale = quant._div127(amax[:m, None])
+    codes = torch.cat([torch.round(fc1_tile(c0)[:m] / scale).clamp(-127, 127)
+                       for c0 in cols], dim=-1).to(torch.int8)
+    y = quant.int8_matmul(codes, w2) * scale * s2[None, :] + b2[None, :]
+    return (xf + y).to(x.dtype), codes, scale, amax[m:]
+
+
+@pytest.mark.parametrize("m,d,hid,seed", [(197, 64, 384, 21),
+                                          (300, 32, 256, 22),
+                                          (12, 48, 128, 23)])
+def test_kernel_c_recompute_order_matches_plain_and_jax(m, d, hid, seed):
+    """The fc1 recomputation gives the plain version's fc1 codes, scales
+    and output bit for bit (m not a multiple of the 256-row tile, hidden
+    widths of one to three column tiles), and meets JAX's kernel C within
+    the 1e-5 of test_kernel_c_plain_matches_jax_kernel."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    lns, lnb = _ln(rng, d)
+    _, w1, s1, b1 = _weights(rng, d, hid)
+    _, w2, s2, b2 = _weights(rng, hid, d)
+    args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
+    t = list(map(_t, args))
+    got, codes, scale, pad_max = _two_pass_mlp_ln(*t)
+    # the padded rows' gelu(b1) is not zero: the mask is what keeps it out
+    assert m % 256 and bool((pad_max > 0).all())
+    h = quant.layernorm_f32(t[0], t[1], t[2], 1e-6)
+    a = quant.gelu_tanh(quant.quant_dense_pre(h, t[3], t[4], t[5]))
+    want_codes, want_scale = quant.quantize_act(a)
+    assert torch.equal(codes, want_codes)
+    assert torch.equal(scale, want_scale)
+    assert torch.equal(got, quant.quant_mlp_ln_plain(*t))
+    ref = np.asarray(jq.quant_mlp_ln_fused(*map(jnp.asarray, args)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_c_h_wrapper_checks_rows_and_out():
+    """The launch chain refuses, before any build, widths off the int8
+    GEMM's 16-byte rows and an `out` that does not fit the rows."""
+    rng = np.random.default_rng(24)
+    ln = tuple(map(_t, _ln(rng, 64)))
+    _, w1, s1, b1 = map(_t, _weights(rng, 64, 256))
+    _, w2, s2, b2 = map(_t, _weights(rng, 256, 64))
+    x = _t(rng.normal(size=(10, 64)).astype(np.float32))
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        quant._launch_mlp("kernel C", x[:, :40], x[:, :40], ln, w1t[:, :40],
+                          s1, b1, w2t[:40], s2[:40], b2[:40], 1e-6)
+    for bad in (torch.empty(9, 64), torch.empty(10, 64, dtype=torch.bfloat16),
+                torch.empty(64, 10).t()):
+        with pytest.raises(ValueError, match="does not fit"):
+            quant._launch_mlp("kernel H", x, x, None, w1t, s1, b1, w2t, s2,
+                              b2, 0.0, out=bad)

@@ -26,11 +26,13 @@
 // in VMEM, D and E are chains of launches on one stream with the
 // intermediates in device memory:
 //   D: LN1 + row quantize -> int8 GEMM qkv (*s + b) -> SDPA -> row
-//      quantize -> int8 GEMM proj (*s + b + x)          (int8_common.cuh)
+//      quantize -> int8 GEMM proj (*s + b + x)   (int8_common.cuh: the
+//      GEMM on wgmma s8 with a TMA ring, as C, G and H)
 //   E: LN1 to the dtype -> GEMM qkv (+ b) -> SDPA -> GEMM proj (+ b + x)
 //      (gemm_float.cuh: bf16 on wgmma with TMA, f32 on the CUDA cores)
 //   F: the SDPA core alone on strided (B, T, H, D) views.
-// At bf16 the SDPA and E's GEMMs are warp-specialised sm_90a kernels: a
+// D's int8 GEMMs in both dtypes, and at bf16 the SDPA and E's GEMMs, are
+// warp-specialised sm_90a kernels: a
 // producer warp streams tiles with TMA into a ring of shared-memory stages
 // behind mbarriers, and consumer warpgroups run wgmma on them (hopper.cuh).
 // Their TMA tensor maps are encoded per call on the host from the
@@ -70,7 +72,8 @@ int run(const void* x, int nb, int t, int d, int heads, int t_real,
   const int m = nb * t, hd = d / heads;
   int e = ln_quant_rows<T>(x, m, d, ln_s, ln_b, eps, hq, sx, st);
   if (e) return e;
-  e = gemm_i8<T, kEpiBias>(hq, wqt, m, 3 * d, d, sx, sq, bq, nullptr, qkv,
+  e = gemm_i8<T, kEpiBias>(hq, wqt, m, 3 * d, d,
+                           I8Epi{sx, sq, bq, nullptr, qkv, nullptr, nullptr},
                            st);
   if (e) return e;
   constexpr int code = sizeof(T) == 2 ? kBF16 : kF32;
@@ -79,7 +82,8 @@ int run(const void* x, int nb, int t, int d, int heads, int t_real,
   if (e) return e;
   e = ln_quant_rows<T>(heads_out, m, d, nullptr, nullptr, 0.f, oq, so, st);
   if (e) return e;
-  return gemm_i8<T, kEpiResidual>(oq, wpt, m, d, d, so, sp, bp, x, out, st);
+  return gemm_i8<T, kEpiResidual>(
+      oq, wpt, m, d, d, I8Epi{so, sp, bp, x, out, nullptr, nullptr}, st);
 }
 
 }  // namespace

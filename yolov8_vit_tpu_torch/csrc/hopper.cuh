@@ -1,14 +1,15 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels of attention.cu:
-// mbarriers, TMA tile loads, wgmma and its shared-memory descriptors, and
-// the host-side encoding of TMA tensor maps.  Raw PTX, no CUTLASS, so the
-// library still builds in seconds.
+// Hopper (sm_90a) building blocks of the kernels of attention.cu and
+// quant_mlp.cu: mbarriers, TMA tile loads and stores, wgmma (bf16 and
+// int8) and its shared-memory descriptors, and the host-side encoding of
+// TMA tensor maps.  Raw PTX, no CUTLASS, so the libraries still build in
+// seconds.
 //
 // Swizzle: a tile whose rows are R bytes (R = 32, 64 or 128) is loaded by
 // TMA with the R-byte swizzle and read by wgmma with the same mode, from
 // a base aligned to 8 rows (8 R bytes; 1024 for the 128-byte mode).  A
-// K-major operand (rows along M or N, 16-element k-steps inside a row)
-// advances its descriptor's start by 32 bytes per k-step; an MN-major one
-// (rows along K) by 16 rows per k-step.
+// K-major operand (rows along M or N, k-steps inside a row) advances its
+// descriptor's start by 32 bytes per k-step (16 bf16 or 32 int8 values);
+// an MN-major one (rows along K) by 16 rows per k-step.
 #pragma once
 
 #include <cuda.h>
@@ -97,6 +98,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// shared -> global: the box at coordinates (c0, c1) from `src` (laid out
+// and swizzled as a load of the same map would leave it); TMA writes no
+// element outside the tensor.  Thread writes to `src` must be made
+// visible to the copy first (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// commit the thread's bulk stores, and wait until they have read shared
+// memory (which may then be reused or released)
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n"
+               "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier of `count` threads on named barrier `id` (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 // descriptor layout codes of the swizzle modes, by row bytes
 constexpr uint64_t gmma_layout(int row_bytes) {
@@ -130,6 +162,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 // D (64 x N, f32) += A (64 x 16, bf16) B (16 x N, bf16).  _rs: A from
@@ -230,6 +267,44 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
+// D (64 x 128, s32) += A (64 x 32, s8) B (32 x 128, s8), both from shared
+// memory and K-major (the only layout wgmma takes for 8-bit types).  D: 64
+// ints a thread, in the layout of wgmma_ss_n128's f32 D.  The int32 sums
+// are exact; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int scale_d) {
@@ -259,13 +334,13 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1 ..), box `box`, swizzle of the box's row bytes, zero fill outside
-// the tensor.  Returns a CUDA error code: the base or a stride off TMA's
-// 16-byte rules is refused here.
-int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                    const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+// A tensor map of `rank` dims of `esize`-byte elements of type `type`
+// (innermost first; strides in bytes of dims 1 ..), box `box`, swizzle of
+// the box's row bytes, zero fill outside the tensor.  Returns a CUDA error
+// code: the base or a stride off TMA's 16-byte rules is refused here.
+int encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+               const void* base, int rank, const uint64_t* dims,
+               const uint64_t* strides, const uint32_t* box) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16)
@@ -273,7 +348,7 @@ int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   for (int i = 0; i + 1 < rank; ++i)
     if (strides[i] % 16 || strides[i] == 0)
       return static_cast<int>(cudaErrorInvalidPitchValue);
-  const int row_bytes = static_cast<int>(box[0]) * 2;
+  const int row_bytes = static_cast<int>(box[0]) * esize;
   const CUtensorMapSwizzle sw = row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
       : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -285,12 +360,18 @@ int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), d, s, b, es,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), d, s, b, es,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                    const uint64_t* dims, const uint64_t* strides,
+                    const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank,
+                    dims, strides, box);
 }
 
 // dynamic shared memory rounded up to the 1024-byte alignment of the

@@ -10,44 +10,53 @@
 // Bounds on the H100 at ViT-B widths (64 crops x 197 tokens = 12608 rows,
 // 768 wide, hidden 3072).  C and H: 2 x 12608 x 768 x 3072 x 2 = 119 G int8
 // operations, about 60 us at 1,979 TOPS; the bytes they must move (rows in
-// and out, two 2.4 MB weights) take about 13 us: bound by operations.  G at
+// and out, two 2.4 MB weights) take about 13 us: bound by operations (this
+// design computes fc1 twice, 178.5 G operations, about 90 us).  G at
 // (768, 3072) bf16: 59 G operations, 30 us, against 12608 x (768 + 3072) x 2
 // bytes, 29 us: the two bounds meet; its narrower shapes are bound by bytes.
 //
 // Design: where the TPU programs held a 256-row tile and its whole fc1
 // output in VMEM, these are chains of launches on one stream, with the
-// intermediates in device memory:
-//   C, H  1. (LN +) per-row quantize      (m, d)   -> int8 (m, d), scale (m)
-//         2. int8 GEMM fc1, epilogue gelu -> f32 (m, hid)
-//         3. per-row quantize over hid    -> int8 (m, hid), scale (m)
-//         4. int8 GEMM fc2, epilogue + residual -> out (m, d) in x's dtype
+// intermediates in device memory, on the one int8 GEMM of
+// int8_common.cuh (wgmma s8 with a TMA ring, epilogues in registers):
+//   C, H  1. (LN +) per-row quantize      (m, d)   -> int8 (m, d), scale (m);
+//            also zeroes the (m,) row-amax buffer
+//         2. fc1, amax pass: epilogue gelu, max |gelu| of each row of its
+//            tile into the amax buffer (atomic max on the f32 bits); stores
+//            nothing else
+//         3. fc1 again, quantize pass: the same products and epilogue, so
+//            the same gelu values bit for bit, then the int8 codes at the
+//            row's scale -> int8 (m, hid), scale (m)
+//         4. fc2, epilogue + residual -> out (m, d) in x's dtype
 //   G     1. per-row quantize; 2. int8 GEMM, epilogue bias (+ SiLU)
-// All products run on the tensor cores (mma.sync s8, int32 accumulation,
-// exact).  The f32 fc1 round trip (m x hid x 4 bytes each way) and G's
-// int8 row round trip are the price of the simple form; keeping a 16-row
-// fc1 tile in shared memory (16 x 3072 f32 = 192 KB) would remove the
-// first, quantizing inside the GEMM's A-tile load the second.
+// quantize_act(gelu(fc1)) needs each whole 3072-wide row's amax before any
+// of its codes.  Recomputing fc1 (59.5 G int8 operations, about 30 us at
+// peak) replaces writing it in f32 and reading it back (m x hid x 4 bytes
+// each way, 310 MB at ViT-B/16's 12608 rows, about 0.09 ms at 3.35 TB/s);
+// on the H100 the chain measured a little faster so (PERF.md) and needs no
+// f32 scratch.  The int32 sums are exact, so every epilogue sees the same
+// values as the plain version's f64 products rounded to f32.
 #include "int8_common.cuh"
 
 namespace {
 
 // ln_s == nullptr: no LayerNorm (kernel H); `res` is the residual stream
-// (x itself for kernel C).
+// (x itself for kernel C).  amax (m,) is scratch for the fc1 row maxima.
 template <typename T>
 int run(const void* x, const void* res, int m, int d, int hid,
         const float* ln_s, const float* ln_b, float eps, const int8_t* w1t,
         const float* s1, const float* b1, const int8_t* w2t, const float* s2,
-        const float* b2, int8_t* hq, float* sx, float* a, int8_t* aq,
+        const float* b2, int8_t* hq, float* sx, unsigned* amax, int8_t* aq,
         float* sa, void* out, cudaStream_t st) {
-  int e = ln_quant_rows<T>(x, m, d, ln_s, ln_b, eps, hq, sx, st);
+  int e = ln_quant_rows<T>(x, m, d, ln_s, ln_b, eps, hq, sx, st, amax);
   if (e) return e;
-  e = gemm_i8<float, kEpiGeluF32>(hq, w1t, m, hid, d, sx, s1, b1, nullptr,
-                                  a, st);
+  const I8Epi fc1{sx, s1, b1, nullptr, aq, amax, sa};
+  e = gemm_i8<int8_t, kEpiGeluAmax>(hq, w1t, m, hid, d, fc1, st);
   if (e) return e;
-  e = ln_quant_rows<float>(a, m, hid, nullptr, nullptr, 0.f, aq, sa, st);
+  e = gemm_i8<int8_t, kEpiGeluQuant>(hq, w1t, m, hid, d, fc1, st);
   if (e) return e;
-  return gemm_i8<T, kEpiResidual>(aq, w2t, m, d, hid, sa, s2, b2, res, out,
-                                  st);
+  return gemm_i8<T, kEpiResidual>(
+      aq, w2t, m, d, hid, I8Epi{sa, s2, b2, res, out, nullptr, nullptr}, st);
 }
 
 template <typename T>
@@ -56,34 +65,33 @@ int run_dense(const void* x, int m, int k, int n, const int8_t* wt,
               float* sx, void* out, cudaStream_t st) {
   int e = ln_quant_rows<T>(x, m, k, nullptr, nullptr, 0.f, xq, sx, st);
   if (e) return e;
-  if (silu)
-    return gemm_i8<T, kEpiBiasSilu>(xq, wt, m, n, k, sx, sw, bias, nullptr,
-                                    out, st);
-  return gemm_i8<T, kEpiBias>(xq, wt, m, n, k, sx, sw, bias, nullptr, out,
-                              st);
+  const I8Epi ep{sx, sw, bias, nullptr, out, nullptr, nullptr};
+  if (silu) return gemm_i8<T, kEpiBiasSilu>(xq, wt, m, n, k, ep, st);
+  return gemm_i8<T, kEpiBias>(xq, wt, m, n, k, ep, st);
 }
 
 }  // namespace
 
 // Kernels C and H.  w1t (hid, d) and w2t (d, hid): the int8 kernels
 // transposed to (out, in).  ln_s == nullptr skips the LayerNorm (H); res
-// is the residual stream in x's dtype (x itself for C).
+// is the residual stream in x's dtype (x itself for C).  Scratch: hq (m,
+// d) and aq (m, hid) int8, sx, amax and sa (m,) 4-byte words.
 extern "C" int launch_quant_mlp(const void* x, const void* res, int dtype,
                                 int m, int d, int hid, const float* ln_s,
                                 const float* ln_b, float eps,
                                 const int8_t* w1t, const float* s1,
                                 const float* b1, const int8_t* w2t,
                                 const float* s2, const float* b2,
-                                int8_t* hq, float* sx, float* a,
+                                int8_t* hq, float* sx, unsigned* amax,
                                 int8_t* aq, float* sa, void* out,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return run<__nv_bfloat16>(x, res, m, d, hid, ln_s, ln_b, eps, w1t, s1,
-                              b1, w2t, s2, b2, hq, sx, a, aq, sa, out, st);
+                              b1, w2t, s2, b2, hq, sx, amax, aq, sa, out, st);
   if (dtype == kF32)
     return run<float>(x, res, m, d, hid, ln_s, ln_b, eps, w1t, s1, b1, w2t,
-                      s2, b2, hq, sx, a, aq, sa, out, st);
+                      s2, b2, hq, sx, amax, aq, sa, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

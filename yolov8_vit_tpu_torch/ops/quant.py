@@ -8,7 +8,10 @@ sub-blocks: kernels C, G and H.
                 y = (acc * s_x) * s_w + b.
 
 On the card (csrc/quant_mlp.cu; its source note gives the bounds on the
-H100 and the design), each replacing a kernel of yolov8_vit_tpu/ops/quant.py:
+H100 and the design: one int8 GEMM on wgmma with a TMA ring, and C and H
+compute fc1 twice, once for each row's amax and once for its int8 codes,
+instead of writing it in f32), each replacing a kernel of
+yolov8_vit_tpu/ops/quant.py:
 
   C  quant_mlp_ln_fused  the ViT's whole pre-norm MLP sub-block,
                          replaces `_quant_mlp_ln_kernel`;
@@ -140,22 +143,31 @@ def transposed_i8(w_i8: torch.Tensor, w_t: torch.Tensor | None = None):
     return w_t
 
 
-def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps):
+def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps,
+                out=None):
     """The launch chain of kernels C (ln = (scale, bias)) and H (ln =
-    None) on (M, D) rows; w1t (H, D) and w2t (D, H) transposed int8."""
+    None) on (M, D) rows; w1t (H, D) and w2t (D, H) transposed int8.  The
+    rows go into `out` where given (an (M, D) contiguous tensor of xm's
+    dtype and device), else into a new tensor."""
     m, d = xm.shape
     hid = w1t.shape[0]
     if xm.dtype not in DTYPE_CODES or d % 16 or hid % 16:
         raise ValueError(f"{what} takes f32/bf16 rows with D, H multiples "
                          f"of 16; got {xm.dtype}, D={d}, H={hid}")
+    if out is None:
+        out = torch.empty_like(xm)
+    elif out.shape != xm.shape or out.dtype != xm.dtype \
+            or out.device != xm.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} does not fit rows {tuple(xm.shape)} "
+                         f"{xm.dtype} on {xm.device}")
     dev = xm.device
     f32 = torch.float32
     hq = torch.empty(m, d, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
-    a = torch.empty(m, hid, dtype=f32, device=dev)
+    amax = torch.empty(m, dtype=torch.int32, device=dev)   # zeroed on card
     aq = torch.empty(m, hid, dtype=torch.int8, device=dev)
     sa = torch.empty(m, dtype=f32, device=dev)
-    out = torch.empty_like(xm)
     so = _build.lib("quant_mlp")
     fn = so.launch_quant_mlp
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -168,7 +180,7 @@ def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps):
     rc = fn(xm.data_ptr(), res.data_ptr(), DTYPE_CODES[xm.dtype], m, d, hid,
             ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(), s1.data_ptr(),
             b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-            hq.data_ptr(), sx.data_ptr(), a.data_ptr(), aq.data_ptr(),
+            hq.data_ptr(), sx.data_ptr(), amax.data_ptr(), aq.data_ptr(),
             sa.data_ptr(), out.data_ptr(), _build.stream_ptr())
     return so, rc, out
 
@@ -257,7 +269,8 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
     optional SiLU in f32, one cast to x's dtype.
 
     w_t: the (N, K) copy of w (see the module note).  CUDA tensors launch
-    kernel G (K a multiple of 16); CPU tensors run the plain version."""
+    kernel G (K a multiple of 16, N of 8); CPU tensors run the plain
+    version."""
     *lead, k = x.shape
     n = w_i8.shape[1]
     xm = x.reshape(-1, k).contiguous()
@@ -265,9 +278,9 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
     sw, b = w_scale.to(f32).contiguous(), bias.to(f32).contiguous()
     if _build.on_cpu(xm, w_i8, sw, b):
         return quant_dense_plain(xm, w_i8, sw, b, silu).reshape(*lead, n)
-    if x.dtype not in DTYPE_CODES or k % 16:
+    if x.dtype not in DTYPE_CODES or k % 16 or n % 8:
         raise ValueError(f"kernel G takes f32/bf16 rows with K a multiple "
-                         f"of 16; got {x.dtype}, K={k}")
+                         f"of 16 and N of 8; got {x.dtype}, K={k}, N={n}")
     m = xm.shape[0]
     dev = x.device
     wt = transposed_i8(w_i8, w_t)
