@@ -11,7 +11,12 @@ Phases (any failure exits non-zero):
      quant_mlp library (C, G, H) and the attention library (D, E, F);
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: A and B (NMS) bit-exact on dense inputs with
-     score ties and IoU-exactly-at-threshold pairs; C and D (W8A8 blocks,
+     score ties and IoU-exactly-at-threshold pairs, A also at a 1280 x 1280
+     input (32 x 33,600 anchors x 5 classes: more candidates than a
+     window, the select path) and on a crowd whose candidates are mostly
+     suppressed (every window and chunk decided), B's kernel alone (its
+     device time, profiler) beside its wrapper; after phase 5, A and B on
+     that phase's decoded boxes (the run's data); C and D (W8A8 blocks,
      ViT-B/16) and D at ViT-B/8's 785 tokens within KERNEL_TOL; E (float
      attention block) and F (flash attention) at 785 tokens, bf16 at 64
      crops within FLOAT_BF16_TOL and f32 at 16 crops within F32_TOL; time
@@ -19,8 +24,8 @@ Phases (any failure exits non-zero):
      PyTorch's scaled_dot_product_attention; E beside torch.addmm at its
      two GEMM shapes, C and D beside torch._int_mm (cuBLASLt int8, s32
      out) at theirs; print, on a line of their own and labelled as not
-     measured, the times of C-H before their wgmma redesign and the SDPA
-     core's exponential floor;
+     measured, the times of A-H before their redesign and the SDPA core's
+     exponential floor;
   4. small-input checks: the whole pipeline on the card against the same
      pipeline on the CPU (plain versions), f32, integer outputs equal, with
      a w8a ViT (kernels C, D) and a float one (kernel E);
@@ -76,7 +81,21 @@ Phases (any failure exits non-zero):
      (VOC XML written, counter bumped), one `/getConfig` round trip, and
      `compare_fused_vs_host` held to count_match == images, mean IoU >
      0.85 and CLASS_AGREE_SHARE (on the frames whose kept set does not
-     hinge on an f32 area tie, `_area_tie_frames`).
+     hinge on an f32 area tie, `_area_tie_frames`);
+  13. the kept set on the card against the CPU, over phase 5's 32 fitted
+     frames (weights and frames of phase 5, four calls of 8 frames on
+     each side): an f32 pipeline's num_dets, stage-1 picks (the flat
+     index class * n + anchor of each kept row, `_stage1_picks`),
+     det_labels and final_valid equal frame for frame but where the
+     frame's stage-2 NMS hinges on an f32 area tie (`_hinges_on_area_tie`),
+     and its cls_labels but where a flipped row's top-two logit margin and
+     the two sides' logit difference on it are both within KERNEL_TOL's
+     atol, one int8 code (`_class_flips`); the main path's bf16 pipeline
+     against its CPU copy, counted: each differing frame printed and
+     attributed to an area tie, a classifier flip, the NMS decisions that
+     differ between the two sides (a score or IoU across its threshold,
+     by how much and whether within one ulp of the activation dtype; a
+     swapped score or area order), or nothing found.
 Each path of phases 5-8, 11 and 12 is driven with every launch count set to 0 just
 before it and read just after: its kernels must have launched, and the
 kernels of the other paths must not have.  Outputs must be finite,
@@ -102,14 +121,15 @@ BATCHES = 4                                    # timed frame batches
 # after each phase)
 ENGINE_DIR = os.path.join(HERE, "chip_smoke_out", "engines")
 
-# the kernels' times before their wgmma redesign (PERF.md's kernel table;
+# the kernels' times before their redesign (PERF.md's kernel table;
 # NVIDIA H100 80GB HBM3, 700.00 W): E and F on mma.sync, C, D, G and H on
-# the mma.sync int8 GEMM (D's SDPA already on wgmma); printed for
-# reference beside this run's, never as a measurement of it
+# the mma.sync int8 GEMM (D's SDPA already on wgmma), A and B as an argmax
+# over the whole pool a pick (wrapper times on the dense inputs); printed
+# for reference beside this run's, never as a measurement of it
 PREV_MS = {"quant_mlp_ln": 0.741, "attn_block_i8": 0.462,
            "attn_block_i8_t785": 2.066, "attn_block": 3.478,
            "flash_attention": 2.421, "quant_dense": 0.345,
-           "quant_mlp": 0.737}
+           "quant_mlp": 0.737, "nms_argmax_ml": 0.744, "mask_scan": 0.173}
 # special-function (ex2) lanes of an H100 SM, and its SMs
 SFU_PER_SM, SMS = 16, 132
 
@@ -184,6 +204,7 @@ CLASS_AGREE_SHARE = 0.8
 # launches it reports
 ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
                "mask_scan": ("area_sorted_nms", "vit_b16_w8a"),
+               "mask_scan_alone": ("area_sorted_nms", "vit_b16_w8a"),
                "quant_mlp_ln": ("quant_mlp_ln_fused", "vit_b16_w8a"),
                "attn_block_i8": ("fused_attention_block_i8", "vit_b16_w8a"),
                "attn_block_i8_t785": ("fused_attention_block_i8",
@@ -339,12 +360,15 @@ G_J = ("quant_dense_fused", "quant_mlp_fused", "nms_single_label",
        "fused_b1b2")
 
 
-def _nms_inputs(torch, b, n, c, seed):
+def _nms_inputs(torch, b, n, c, seed, side=640):
     """Dense clustered boxes on a half-pixel grid, scores quantized to
     1/16 (many exact ties), plus planted pairs at IoU exactly .65 and .45
-    (inter/union = 13/20 and 9/20) with equal scores."""
+    (inter/union = 13/20 and 9/20) with equal scores.  side 640: boxes
+    about the middle of a 640 x 640 input; larger: spread over it."""
     g = torch.Generator().manual_seed(seed)
     ctr = torch.randn(b, n, 2, generator=g) * 80 + 320
+    if side != 640:
+        ctr = torch.rand(b, n, 2, generator=g) * (side - 80) + 40
     wh = torch.rand(b, n, 2, generator=g) * 140 + 20
     boxes = torch.round(torch.cat([ctr - wh / 2, ctr + wh / 2], -1) * 2) / 2
     scores = torch.rand(b, n, c, generator=g) * 0.2
@@ -365,59 +389,139 @@ def _nms_inputs(torch, b, n, c, seed):
     return boxes, scores
 
 
+def _crowd_inputs(torch, b, n, c, seed, clusters=12):
+    """Tight clusters of near-equal boxes with every score above 0.25: one
+    box a cluster and class is kept, so kernel A decides every one of its
+    n * c candidates, window after window and chunk after chunk, before
+    its pool runs out."""
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.rand(b, clusters, 2, generator=g) * 440 + 100
+    pick = torch.randint(0, clusters, (b, n), generator=g)
+    ctr = torch.gather(centers, 1, pick[..., None].expand(b, n, 2)) \
+        + torch.randn(b, n, 2, generator=g)
+    wh = 60 + torch.randn(b, n, 2, generator=g)
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    return boxes, torch.rand(b, n, c, generator=g) * 0.74 + 0.26
+
+
+def _kernel_ms(torch, fn, kernel: str) -> float:
+    """The device ms a launch of `kernel` (a regex on the kernel names),
+    torch.profiler over three calls of fn."""
+    return profile_parts(torch, fn, {"k": kernel})["k"]
+
+
+def _time_a(torch, ops, boxes, scores, label: str) -> dict:
+    """Kernel A on (B, N, 4) + (B, N, C): bit for bit against its plain
+    version, its wrapper timed (CUDA events), its kernel alone (profiler),
+    the plain version, and the bound: the larger of the bytes the function
+    must move (boxes and scores read once, the outputs written once, and
+    the keys of an image's candidates past one window of shared memory
+    written to the pool and read back once) and the operations this data
+    needs (a compare a score; an IoU, about 14 operations, for each
+    candidate, which one kept box at least must test, and for each pair of
+    kept boxes of a class).  The picks of an image are dependent:
+    `dependent_picks` is the longest chain, the latency floor beside the
+    bound."""
+    from yolov8_vit_tpu_torch.ops.nms import NMS_WINDOW, nms_argmax_ml_plain
+    got = ops.efficient_nms_scan(boxes, scores)
+    ref = nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100)
+    for name, x, r in zip(("num_dets", "boxes", "scores", "labels"), got,
+                          ref):
+        if not torch.equal(x, r):
+            raise AssertionError(f"kernel A != plain on {name} ({label}): "
+                                 f"{int((x != r).sum())} entries differ")
+    b = scores.shape[0]
+    cand = (scores > 0.25).sum(dim=(1, 2))
+
+    def call():
+        return ops.efficient_nms_scan(boxes, scores)
+
+    spill = int((cand - NMS_WINDOW).clamp_min(0).sum())
+    nbytes = (boxes.numel() + scores.numel()) * 4 + b * 100 * 6 * 4 + b * 4 \
+        + spill * 8 * 2
+    labels = got[3].long()
+    per_class = torch.stack([(labels == k).sum(dim=1)
+                             for k in range(scores.shape[2])])
+    pairs = int((per_class * (per_class - 1) // 2).sum())
+    op_ms = (scores.numel() + 14 * (int(cand.sum()) + pairs)) \
+        / PEAK_F32_FLOPS * 1e3
+    bound, by = _bound_ms(nbytes, op_ms)
+    return {"picks": int(got[0].sum()),
+            "dependent_picks": int(got[0].max()),
+            "candidates": int(cand.sum()),
+            "ms": _time_ms(call, 20),
+            "kernel_ms": _kernel_ms(torch, call, r"greedy_nms_kernel<false>"),
+            "plain_ms": _time_ms(lambda: nms_argmax_ml_plain(
+                boxes, scores, 0.65, 0.25, 100), 2),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _time_b(torch, ops, boxes, scores, valid, label: str) -> dict:
+    """Kernel B on (B, T, 4) boxes, (B, T) scores and valid: bit for bit
+    against its plain version; the wrapper (CUDA events), its kernel alone
+    (profiler) and the plain version timed."""
+    from yolov8_vit_tpu_torch.ops.nms import mask_priority, mask_scan_plain
+    keep = ops.area_sorted_nms(boxes, scores, valid)
+    pri = mask_priority(boxes, scores, valid, 0.35)
+    keep_ref = mask_scan_plain(boxes, pri, 0.45)
+    if not torch.equal(keep, keep_ref):
+        raise AssertionError(f"kernel B != plain ({label}): "
+                             f"{int((keep != keep_ref).sum())} rows differ")
+
+    def call():
+        return ops.area_sorted_nms(boxes, scores, valid)
+
+    b, t = scores.shape
+    bound, by = _bound_ms(b * t * (4 * 4 + 4 + 1 + 1), 0.0)
+    return {"kept": int(keep.sum()), "ms": _time_ms(call, 50),
+            "kernel_ms": _kernel_ms(torch, call, r"greedy_nms_kernel<true>"),
+            "plain_ms": _time_ms(lambda: mask_scan_plain(boxes, pri, 0.45),
+                                 2),
+            "bound_ms": bound, "bound_by": by}
+
+
 def check_kernels(torch, ops, mlp_rows: int,
                   crops: int) -> tuple[list[dict], dict]:
     """Phase 3 at the ViT-B/16 path's shapes: A, B, C, D.  Returns the
     kernel rows and, for phase 10's profiler, a call of C and of D on
     their inputs here."""
     from yolov8_vit_tpu_torch.ops.attention import attn_block_i8_plain
-    from yolov8_vit_tpu_torch.ops.nms import (mask_scan_plain,
-                                              nms_argmax_ml_plain)
     from yolov8_vit_tpu_torch.ops.quant import (quant_mlp_ln_plain,
                                                 quantize_weight)
     dev = torch.device("cuda")
     rows = []
 
     # ---- A: stage-1 NMS, (32, 8400, 4) + (32, 8400, 5) ----------------
-    boxes, scores = (t.to(dev) for t in _nms_inputs(torch, 32, 8400, 5, 0))
-    got = ops.efficient_nms_scan(boxes, scores)
-    ref = nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100)
-    for name, a, r in zip(("num_dets", "boxes", "scores", "labels"), got, ref):
-        if not torch.equal(a, r):
-            raise AssertionError(f"kernel A != plain on {name}: "
-                                 f"{int((a != r).sum())} entries differ")
-    picks = int(got[0].sum())
-    k_ms = _time_ms(lambda: ops.efficient_nms_scan(boxes, scores), 20)
-    p_ms = _time_ms(lambda: nms_argmax_ml_plain(boxes, scores, 0.65, 0.25,
-                                                100), 2)
-    nbytes = (boxes.numel() + scores.numel()) * 4 + 32 * 100 * 6 * 4 + 32 * 4
-    # each pick: a reduction over n*c scores + ~14 flops of IoU per anchor
-    op_ms = picks * (8400 * 5 + 8400 * 14) / PEAK_F32_FLOPS * 1e3
-    bound, by = _bound_ms(nbytes, op_ms)
+    by_input = {}
+    for label, inp in (("dense", _nms_inputs(torch, 32, 8400, 5, 0)),
+                       ("1280", _nms_inputs(torch, 32, 33600, 5, 3,
+                                            side=1280)),
+                       ("crowd", _crowd_inputs(torch, 32, 8400, 5, 4))):
+        boxes, scores = (t.to(dev) for t in inp)
+        by_input[label] = _time_a(torch, ops, boxes, scores, label)
+    a = by_input["dense"]
     rows.append(dict(name="nms_argmax_ml", route="cuda",
                      source="yolov8_vit_tpu_torch/csrc/nms.cu",
                      replaces="yolov8_vit_tpu/ops/nms.py:147",
-                     max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, library_ms=None, picks=picks))
+                     max_abs_err=0.0, ms=a["ms"], plain_ms=a["plain_ms"],
+                     bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+                     library_ms=None, kernel_ms=a["kernel_ms"],
+                     by_input=by_input))
 
     # ---- B: stage-2 area NMS, (32, 100) rows ---------------------------
     bb, ss = (t.to(dev) for t in _nms_inputs(torch, 32, 100, 1, 1))
     ss = ss[..., 0] + 0.3
     valid = torch.rand(32, 100, device=dev) > 0.1
-    keep = ops.area_sorted_nms(bb, ss, valid)
-    pri = torch.where(valid & (ss > 0.35), ops.box_area(bb), -1e9)
-    keep_ref = mask_scan_plain(bb, pri, 0.45)
-    if not torch.equal(keep, keep_ref):
-        raise AssertionError(f"kernel B != plain: "
-                             f"{int((keep != keep_ref).sum())} rows differ")
-    k_ms = _time_ms(lambda: ops.area_sorted_nms(bb, ss, valid), 50)
-    p_ms = _time_ms(lambda: mask_scan_plain(bb, pri, 0.45), 2)
-    bound, by = _bound_ms(32 * 100 * (4 * 4 + 4 + 1), 0.0)
-    rows.append(dict(name="mask_scan", route="cuda",
-                     source="yolov8_vit_tpu_torch/csrc/nms.cu",
-                     replaces="yolov8_vit_tpu/ops/nms.py:294",
-                     max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                     bound_by=by, library_ms=None))
+    b_rep = _time_b(torch, ops, bb, ss, valid, "dense")
+    for name, ms in (("mask_scan", b_rep["ms"]),
+                     ("mask_scan_alone", b_rep["kernel_ms"])):
+        rows.append(dict(name=name, route="cuda",
+                         source="yolov8_vit_tpu_torch/csrc/nms.cu",
+                         replaces="yolov8_vit_tpu/ops/nms.py:294",
+                         max_abs_err=0.0, ms=ms, plain_ms=b_rep["plain_ms"],
+                         bound_ms=b_rep["bound_ms"],
+                         bound_by=b_rep["bound_by"], library_ms=None,
+                         by_input={"dense": b_rep}))
 
     # ---- C and D: ViT-B/16 widths, bf16 activations ---------------------
     g = torch.Generator().manual_seed(2)
@@ -1094,30 +1198,42 @@ def profile_step(torch, runner, frames, path: str) -> dict:
             **({"attn_block_split_ms": e_split} if e_split else {})}
 
 
-def profile_parts(torch, fn, parts: dict, calls: int = 3) -> dict:
+def profile_parts(torch, fn, parts: dict, calls: int = 3,
+                  tries: int = 3) -> dict:
     """torch.profiler over `calls` calls of one kernel wrapper: the device
     ms a launch of each part (a regex on the kernel names), and the device
-    ms a call of all of them; raises where a part never ran."""
+    ms a call of all of them.  A session can lose a kernel's records (seen
+    once on the H100: the GEMMs of a call recorded, its row kernel not), so
+    a profile that misses a part is taken again, at most `tries` in all,
+    each retry printed; raises where a part never shows."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-    attr = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    rows = [(e.key, getattr(e, attr), e.count) for e in ka
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and getattr(e, attr) > 0]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        attr = ("self_device_time_total"
+                if hasattr(ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        rows = [(e.key, getattr(e, attr), e.count) for e in ka
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and getattr(e, attr) > 0]
+        missing = [name for name in parts.values()
+                   if not any(re.search(name, k) for k, _, _ in rows)]
+        if not missing:
+            break
+        print(f"profile {attempt + 1} of {tries}: no kernel matches "
+              f"{missing} among {[k[:80] for k, _, _ in rows]}", flush=True)
+    else:
+        raise AssertionError(f"profile: no kernel matches {missing} in "
+                             f"{tries} profiles")
     out = {}
     for part, name in parts.items():
         hits = [(us, n) for k, us, n in rows if re.search(name, k)]
-        if not hits:
-            raise AssertionError(f"profile: no kernel matches {name} among "
-                                 f"{[k[:80] for k, _, _ in rows]}")
         out[part] = sum(us for us, _ in hits) / sum(n for _, n in hits) / 1e3
     out["call"] = sum(us for _, us, _ in rows) / calls / 1e3
     return out
@@ -1131,6 +1247,49 @@ def _equal(torch, name, got, ref) -> None:
             f"max {float((got.float() - ref.float()).abs().max())}")
 
 
+def _decoded(torch, pipe, frames):
+    """The pipeline's stage-1 NMS inputs for uint8 frames on its device:
+    the detector's boxes (B, N, 4) and class scores (B, N, C), f32, as
+    runtime/detector.py decodes them, and the detector's input."""
+    from yolov8_vit_tpu_torch.models.yolov8 import flatten_head_outputs
+    from yolov8_vit_tpu_torch.ops import (blob, dfl_decode, letterbox_fast,
+                                          make_anchors)
+    cfg, f32 = pipe.det_cfg, torch.float32
+    with torch.no_grad():
+        lb, _, _ = letterbox_fast(frames, cfg.input_size, dtype=pipe.dtype)
+        det_in = blob(lb).to(pipe.dtype)
+        box_dist, cls_logits = flatten_head_outputs(pipe.det(det_in))
+        anchors, stride = make_anchors(cfg.input_size, cfg.strides,
+                                       device=frames.device)
+        boxes = dfl_decode(box_dist.to(f32), anchors, stride,
+                           cfg.reg_max).contiguous()
+        scores = torch.sigmoid(cls_logits.to(f32)).contiguous()
+    return boxes, scores, det_in
+
+
+def nms_run_data(torch, ops, pipe, frames) -> dict:
+    """Phase 3 on the run's data (after phase 5): A on phase 5's decoded
+    boxes and scores of its first 32 frames, B on A's kept rows
+    un-letterboxed and clipped as the pipeline hands them on; each bit for
+    bit against its plain version and timed.  Returns {"A": ..., "B":
+    ...}."""
+    from yolov8_vit_tpu_torch.ops import letterbox_params, unletterbox_boxes
+    boxes, scores, _ = _decoded(torch, pipe, frames)
+    out = {"A": _time_a(torch, ops, boxes, scores, "run")}
+    if out["A"]["picks"] == 0:
+        raise AssertionError("kernel A kept nothing on the run's frames")
+    _, ob, os_, ol = ops.efficient_nms_scan(boxes, scores)
+    h, w = frames.shape[1:3]
+    _, _, ratio, dw, dh, _, _ = letterbox_params((h, w),
+                                                  pipe.det_cfg.input_size)
+    img = torch.tensor([w, h, w, h], dtype=torch.float32,
+                       device=frames.device)
+    bb = torch.minimum(unletterbox_boxes(ob, ratio, (dw, dh)).clamp_min(0.0),
+                       img)
+    out["B"] = _time_b(torch, ops, bb.contiguous(), os_, ol >= 0, "run")
+    return out
+
+
 def public_ops_phase(torch, ops, pipe, tree: dict, frames,
                      mlp_rows: int) -> tuple[list[dict], dict, dict]:
     """Phase 11: kernels G-J against their plain versions, timed, then
@@ -1139,9 +1298,6 @@ def public_ops_phase(torch, ops, pipe, tree: dict, frames,
     `frames` its first batch of 32 uint8 frames on the card.  Returns the
     kernel rows, the launch counts of the drive, and a report."""
     from yolov8_vit_tpu_torch.models.vit import QuantDensePre
-    from yolov8_vit_tpu_torch.ops import blob, dfl_decode, letterbox_fast, \
-        make_anchors
-    from yolov8_vit_tpu_torch.models.yolov8 import flatten_head_outputs
     from yolov8_vit_tpu_torch.ops.fused_region import (region_b1b2_plain,
                                                        region_params)
     from yolov8_vit_tpu_torch.ops.nms import (nms_argmax_plain,
@@ -1242,16 +1398,7 @@ def public_ops_phase(torch, ops, pipe, tree: dict, frames,
                      bound_by=by, library_ms=None))
 
     # ---- I: phase 5's decoded boxes and scores, and A's tie inputs ---------
-    cfg = pipe.det_cfg
-    with torch.no_grad():
-        lb, _, _ = letterbox_fast(frames, cfg.input_size, dtype=pipe.dtype)
-        det_in = blob(lb).to(pipe.dtype)
-        box_dist, cls_logits = flatten_head_outputs(pipe.det(det_in))
-        anchors, stride = make_anchors(cfg.input_size, cfg.strides,
-                                       device=dev)
-        real_boxes = dfl_decode(box_dist.to(f32), anchors, stride,
-                                cfg.reg_max).contiguous()
-        real_scores = torch.sigmoid(cls_logits.to(f32)).contiguous()
+    real_boxes, real_scores, det_in = _decoded(torch, pipe, frames)
     tie_boxes, tie_scores = (t.to(dev)
                              for t in _nms_inputs(torch, 32, 8400, 5, 0))
     i_rep = {}
@@ -1358,15 +1505,27 @@ def _http_json(url: str, body=None, timeout: float = 300.0):
         return json.loads(resp.read())
 
 
+def _hinges_on_area_tie(np, infer, boxes, scores, cfg) -> bool:
+    """Whether one frame's stage-2 NMS depends on float width: the host
+    route's area-sorted NMS (serve/infer.py, as the JAX package's host
+    route computes it) on the frame's clipped stage-1 rows keeps another
+    count with areas in f64 than in f32.  The fitted head pins every box
+    to one size, so candidates' areas tie exactly in f32 (the device's
+    kernel B: ties to the lowest row) and differ in their last digits in
+    f64; where the greedy order then decides the kept set, an f32 result
+    can rightly differ from another run whose boxes moved by an ulp."""
+    keep = scores > cfg.conf_second
+    wide = infer._area_nms_host(boxes[keep].astype(np.float64), scores[keep],
+                                cfg.custom_nms_iou)
+    narrow = infer._area_nms_host(boxes[keep].astype(np.float32),
+                                  scores[keep], cfg.custom_nms_iou)
+    return len(wide) != len(narrow)
+
+
 def _area_tie_frames(np, infer, imageio, det_eng, paths) -> list[str]:
-    """Frames on which the host route's area-sorted NMS depends on float
-    width.  The fitted head pins every box to one size, so the candidates'
-    areas tie exactly in f32 (the device's kernel B: ties to the lowest
-    row) and differ in their last digits in f64 (serve/infer.py, as the
-    JAX package's host route computes them): where the greedy order then
-    decides the kept set, the two routes rightly differ.  Returns the
-    names of the frames whose kept count differs between the two widths
-    on the host."""
+    """The names of the frames, read from `paths` and run through the host
+    detect engine, whose stage-2 NMS hinges on an f32 area tie
+    (`_hinges_on_area_tie`)."""
     out = []
     cfg = det_eng.det_cfg
     for path in paths:
@@ -1375,14 +1534,258 @@ def _area_tie_frames(np, infer, imageio, det_eng, paths) -> list[str]:
         num, bb, sc, _ = (infer._np(t) for t in det_eng(x))
         n = int(num.reshape(-1)[0])
         bb = bb.reshape(-1, 4)[:n].clip(0, [rgb.shape[1], rgb.shape[0]] * 2)
-        sc = sc.reshape(-1)[:n]
-        keep = sc > cfg.conf_second
-        wide = infer._area_nms_host(bb[keep].astype(np.float64), sc[keep],
-                                    cfg.custom_nms_iou)
-        narrow = infer._area_nms_host(bb[keep].astype(np.float32), sc[keep],
-                                      cfg.custom_nms_iou)
-        if len(wide) != len(narrow):
+        if _hinges_on_area_tie(np, infer, bb, sc.reshape(-1)[:n], cfg):
             out.append(os.path.basename(path))
+    return out
+
+
+# the kept-set check runs each side in calls of this many frames (the
+# classify budget is spread over a call's frames, so both sides batch alike)
+KEPT_SET_CALL = 8
+
+
+def _pair_iou(torch, bx):
+    """(N, 4) boxes -> (N, N) IoU, row i as the later box, column j the
+    earlier, in the kernels' operation order."""
+    from yolov8_vit_tpu_torch.ops.nms import _iou_vs
+    return _iou_vs(bx[None].expand(len(bx), -1, -1), bx).t()
+
+
+def _flips(torch, a, b, thr, what: str, rel: float, among=None) -> list:
+    """Decisions `a > thr` and `b > thr` (two sides' values, where `among`)
+    that differ: "<what> crosses <thr>: <count> (|d| <= <largest
+    difference>[, within one ulp])"."""
+    flip = (a > thr) != (b > thr)
+    if among is not None:
+        flip &= among
+    if not bool(flip.any()):
+        return []
+    d = float((a - b).abs()[flip].max())
+    ulp = ", within one ulp" if d <= rel * thr else ""
+    return [f"{what} crosses {thr}: {int(flip.sum())} (|d| <= {d:.3g}{ulp})"]
+
+
+def _order_swaps(torch, ka, kb, overlap, what: str) -> list:
+    """Pairs that interact (`overlap`) whose order by key differs between
+    the two sides (ties included): "<what> order swaps: <count>"."""
+    swap = (torch.sign(ka[:, None] - ka) != torch.sign(kb[:, None] - kb)) \
+        & overlap
+    return [f"{what} order swaps: {int(swap.sum()) // 2}"] \
+        if bool(swap.any()) else []
+
+
+def _stage_flips(torch, cfg, sides, rel: float) -> list:
+    """The decisions of frame's two NMS stages that differ between the
+    card (sides[0]) and the CPU (sides[1]); each side: its stage-1 boxes
+    (N, 4) and scores (N, C), and its stage-2 rows (boxes (T, 4), scores
+    (T,), labels (T,), num_dets)."""
+    (b1c, s1c, r2c), (b1p, s1p, r2p) = sides
+    out = _flips(torch, s1c, s1p, cfg.nms_conf, "stage-1 score", rel)
+    cand = ((s1c > cfg.nms_conf) | (s1p > cfg.nms_conf)).nonzero()
+    if len(cand) > 1:
+        a, k = cand[:, 0], cand[:, 1]
+        same = (k[:, None] == k) & ~torch.eye(len(a), dtype=torch.bool)
+        ic, ip = _pair_iou(torch, b1c[a]), _pair_iou(torch, b1p[a])
+        out += _flips(torch, ic, ip, cfg.nms_iou, "stage-1 IoU", rel,
+                      among=same)
+        over = same & ((ic > cfg.nms_iou) | (ip > cfg.nms_iou))
+        out += _order_swaps(torch, s1c[a, k], s1p[a, k], over,
+                            "stage-1 score")
+    (bc, sc, lc, nc), (bp, sp, lp, np_) = r2c, r2p
+    if nc == np_ and torch.equal(lc, lp):    # the same rows on both sides
+        valid = lc[:nc] >= 0
+        bc, bp, sc, sp = bc[:nc], bp[:nc], sc[:nc], sp[:nc]
+        out += _flips(torch, sc, sp, cfg.conf_second, "stage-2 score", rel,
+                      among=valid)
+        comp = valid & ((sc > cfg.conf_second) | (sp > cfg.conf_second))
+        pair = comp[:, None] & comp & ~torch.eye(nc, dtype=torch.bool)
+        ic, ip = _pair_iou(torch, bc), _pair_iou(torch, bp)
+        out += _flips(torch, ic, ip, cfg.custom_nms_iou, "stage-2 IoU", rel,
+                      among=pair)
+        area = [(x[:, 2] - x[:, 0]).clamp_min(0)
+                * (x[:, 3] - x[:, 1]).clamp_min(0) for x in (bc, bp)]
+        over = pair & ((ic > cfg.custom_nms_iou) | (ip > cfg.custom_nms_iou))
+        out += _order_swaps(torch, *area, over, "stage-2 area")
+    return out
+
+
+def _stage1_picks(torch, boxes, scores, out):
+    """The flat index class * n + anchor of each row that stage-1 NMS kept
+    (-1 padded), (B, M) int64: the lowest (anchor, class) whose box and
+    score the row carries bit for bit, as the greedy picks among equal
+    entries."""
+    num, ob, os_, ol = out
+    n = boxes.shape[1]
+    lab = ol.long().clamp_min(0)
+    same = (boxes[:, None] == ob[:, :, None]).all(-1) \
+        & (scores.transpose(1, 2).gather(1, lab[:, :, None].expand(-1, -1, n))
+           == os_[..., None])
+    anchor = torch.where(same, torch.arange(n, device=boxes.device),
+                         n).amin(dim=2)
+    if bool((anchor[ol >= 0] == n).any()):
+        raise AssertionError("a kept stage-1 row matches no input entry")
+    return torch.where(ol >= 0, lab * n + anchor, -1)
+
+
+def _row_logits(torch, parts: list, logits: list, per_call: int) -> dict:
+    """{(frame, row): the ViT's logits} of one run: each call's classify
+    slots recomputed from its outputs as TwoStagePipeline.forward picks
+    them (valid first, then score, a stable sort), matched to the logits
+    the ViT returned for that call."""
+    out = {}
+    for ci, (o, lg) in enumerate(zip(parts, logits)):
+        t = o["final_valid"].shape[1]
+        valid = o["final_valid"].reshape(-1)
+        sc = o["det_scores"].reshape(-1)
+        pri = torch.where(valid, 1.0 + sc, sc)
+        slots = torch.sort(pri, descending=True, stable=True).indices
+        for s_, flat in enumerate(slots[:len(lg)].tolist()):
+            out[(ci * per_call + flat // t, flat % t)] = lg[s_]
+    return out
+
+
+def _class_flips(torch, legs, f: int) -> str | None:
+    """Where frame f's kept set is equal on both sides and only its
+    cls_labels differ: "class margin ..." when every flipped row's top-two
+    logit margin, and the two sides' largest logit difference on that row,
+    are within KERNEL_TOL's atol (one int8 code of a W8A8 block: the ViT's
+    f32 sums run in another order on each side), "classify budget ..."
+    when a row was classified on one side only (scores that differ in
+    their last bits reorder the budget's slots); else None."""
+    card, cpu = legs
+    rows = torch.nonzero(card["cls_labels"][f] != cpu["cls_labels"][f])
+    why = set()
+    for r in rows[:, 0].tolist():
+        lc = card["row_logits"].get((f, r))
+        lp = cpu["row_logits"].get((f, r))
+        if lc is None or lp is None:
+            why.add("classify budget: a row classified on one side")
+            continue
+        delta = float((lc - lp).abs().max())
+        top = torch.topk(lp, 2).values
+        margin = float(top[0] - top[1])
+        if max(margin, delta) > KERNEL_TOL["atol"]:
+            return None
+        why.add(f"class margin {margin:.3g}, logit difference {delta:.3g}, "
+                f"both <= {KERNEL_TOL['atol']}")
+    return "; ".join(sorted(why)) if why else None
+
+
+def _attribute(torch, np, infer, cfg, legs, pipes, frame, f: int,
+               rel: float) -> str:
+    """Why frame f's integer outputs differ between the card's and the
+    CPU's run: "area tie" (`_hinges_on_area_tie` on either side's stage-2
+    rows), a flip of the classifier alone (`_class_flips`), the NMS
+    decisions that differ between the two sides (`_stage_flips`: a score
+    or IoU on the other side of its threshold, with the largest difference
+    and whether it is within one ulp, `rel` of the threshold; a pair's
+    score or area order swapped; the stage-1 inputs decoded again for
+    this frame alone), or "unexplained"."""
+    card, cpu = legs
+    if all(torch.equal(card[k][f], cpu[k][f])
+           for k in ("num_dets", "picks", "det_labels", "final_valid")):
+        flips = _class_flips(torch, legs, f)
+        if flips is not None:
+            return flips
+    sides = []
+    for leg, pipe in zip(legs, pipes):
+        n = int(leg["num_dets"][f])
+        if _hinges_on_area_tie(np, infer, leg["boxes"][f][:n].numpy(),
+                               leg["det_scores"][f][:n].numpy(), cfg):
+            return "area tie"
+        b1, s1, _ = _decoded(torch, pipe, frame.to(pipe.device))
+        sides.append((b1[0].cpu(), s1[0].cpu(),
+                      (leg["boxes"][f], leg["det_scores"][f],
+                       leg["det_labels"][f], n)))
+    found = _stage_flips(torch, cfg, sides, rel)
+    return "; ".join(found) if found else "unexplained"
+
+
+def kept_set_phase(torch, np, det_cfg, vit_spec, tree: dict, frames,
+                   devices=("cuda", "cpu")) -> dict:
+    """Phase 13: the pipeline of phase 5's weights on its fitted frames,
+    the card against a CPU copy, KEPT_SET_CALL frames a call on both: at
+    f32 every frame's kept set (num_dets, det_labels, final_valid) must
+    be equal unless its stage-2 NMS hinges on an f32 area tie, and its
+    cls_labels unless a flipped row's logit margin lies within the two
+    sides' logit difference (`_class_flips`); at bf16 (the main path) the
+    differing frames are counted and attributed (one ulp: 2^-23 of a
+    threshold at f32, 2^-8 at bf16).  The kept set includes the stage-1
+    picks, so a kept row of another anchor with the same class, count and
+    stage-2 mask is a difference too."""
+    from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
+    from yolov8_vit_tpu_torch.runtime import detector
+    from yolov8_vit_tpu_torch.serve import infer
+    from yolov8_vit_tpu_torch.weights import load_pipeline_tree
+    keys = ("num_dets", "picks", "det_labels", "final_valid", "cls_labels")
+    nms_scan = detector.efficient_nms_scan
+    out = {"frames": len(frames)}
+    for dtype, rel in ((torch.float32, 2.0 ** -23), (torch.bfloat16,
+                                                     2.0 ** -8)):
+        legs, pipes = [], []
+        for device in devices:
+            t0 = time.perf_counter()
+            pipe = TwoStagePipeline(det_cfg=det_cfg, vit_spec=vit_spec,
+                                    classify_budget=BUDGET, dtype=dtype,
+                                    device=device)
+            load_pipeline_tree(pipe, tree)
+            parts, logits, picks = [], [], []
+            hook = pipe.vit.register_forward_hook(
+                lambda _m, _i, o, lg=logits: lg.append(o.float().cpu()))
+
+            def scan(boxes, scores, **kw):
+                out = nms_scan(boxes, scores, **kw)
+                picks.append(_stage1_picks(torch, boxes, scores, out))
+                return out
+
+            detector.efficient_nms_scan = scan
+            try:
+                with torch.no_grad():
+                    for i in range(0, len(frames), KEPT_SET_CALL):
+                        o = pipe(frames[i:i + KEPT_SET_CALL].to(device))
+                        if len(picks) != len(parts) + 1:
+                            raise AssertionError("stage-1 NMS ran other "
+                                                 "than once a call")
+                        o["picks"] = picks[-1]
+                        parts.append({k: v.cpu() for k, v in o.items()})
+            finally:
+                detector.efficient_nms_scan = nms_scan
+                hook.remove()
+            legs.append({k: torch.cat([p[k] for p in parts])
+                         for k in parts[0]})
+            legs[-1]["row_logits"] = _row_logits(torch, parts, logits,
+                                                 KEPT_SET_CALL)
+            pipes.append(pipe)
+            out[f"{device}_{str(dtype)[6:]}_{len(pipes)}_s"] = \
+                time.perf_counter() - t0
+        card, cpu = legs
+        diff = {}
+        for f in range(len(frames)):
+            which = [k for k in keys if not torch.equal(card[k][f],
+                                                         cpu[k][f])]
+            if which:
+                diff[f] = {"outputs": which, "why": _attribute(
+                    torch, np, infer, det_cfg, legs, pipes,
+                    frames[f:f + 1], f, rel)}
+        del pipes
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[name] = {"frames_differing": len(diff), "by_frame": diff,
+                     "kept_card": int(card["final_valid"].sum()),
+                     "kept_cpu": int(cpu["final_valid"].sum())}
+        print(f"kept set card vs CPU, {name}: {len(diff)} of {len(frames)} "
+              f"frames differ: {json.dumps(diff)}", flush=True)
+        if name == "f32":
+            bad = {f: d for f, d in diff.items()
+                   if d["why"] != "area tie" and not (
+                       d["outputs"] == ["cls_labels"]
+                       and d["why"].startswith(("class margin",
+                                                "classify budget")))}
+            if bad:
+                raise AssertionError(
+                    f"kept set, f32: the card's integer outputs or stage-1 "
+                    f"picks differ from the CPU's on frames that no area "
+                    f"tie (and, for cls_labels alone, no classifier margin "
+                    f"within one int8 code) explains: {bad}")
     return out
 
 
@@ -1585,6 +1988,7 @@ def _report(name: str, rep: dict) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1625,6 +2029,8 @@ def main() -> int:
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms {r['library_ms']} "
               f"max_abs_err {r['max_abs_err']}"
+              + (f" kernel_ms {r['kernel_ms']:.4f} by_input "
+                 f"{json.dumps(r['by_input'])}" if "kernel_ms" in r else "")
               + (f" (transposing per call: "
                  f"{r['ms_transposing_per_call']:.4f} ms)"
                  if "ms_transposing_per_call" in r else "")
@@ -1636,8 +2042,9 @@ def main() -> int:
     reference = {"mma_sync_version_ms": PREV_MS, "exp_floor_ms": {
         r["name"]: r.pop("exp_floor_ms") for r in rows
         if "exp_floor_ms" in r}}
-    print("not measured in this run: C-H before their wgmma redesign "
-          "(PERF.md) and the SDPA core's exponential floor: "
+    print("not measured in this run: A-H before their redesign (PERF.md; "
+          "A and B: the argmax-per-pick kernels' wrapper times on the dense "
+          "inputs) and the SDPA core's exponential floor: "
           f"{json.dumps(reference)}", flush=True)
     print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
@@ -1653,6 +2060,15 @@ def main() -> int:
         torch, ops, BATCHES)
     _report(f"ViT-B/16 w8a slice ({time.perf_counter() - t0:.1f} s)",
             paths["vit_b16_w8a"])
+    t0 = time.perf_counter()
+    run_nms = nms_run_data(torch, ops, b16_runner.pipeline,
+                           paths["vit_b16_w8a"]["frames"])
+    for r in rows:
+        if r["name"] in ROW_WRAPPER and "by_input" in r:
+            r["by_input"]["run"] = run_nms[
+                "A" if r["name"] == "nms_argmax_ml" else "B"]
+    _report(f"A and B on the run's data ({time.perf_counter() - t0:.1f} s)",
+            run_nms)
     t0 = time.perf_counter()
     paths["vit_b8_float"], b8_runner, b8_tree = b8_float_slice(
         torch, ops, BATCHES)
@@ -1675,6 +2091,12 @@ def main() -> int:
                           paths["vit_b16_w8a"]["frames"])
     _report(f"detector convs ({time.perf_counter() - t0:.1f} s)",
             {k: v for k, v in conv.items() if k != "per_conv"})
+    t0 = time.perf_counter()
+    b16_pipe = b16_runner.pipeline
+    kept = kept_set_phase(torch, np, b16_pipe.det_cfg, b16_pipe.vit_spec,
+                          b16_tree, paths["vit_b16_w8a"]["frames"])
+    _report(f"kept set card vs CPU ({time.perf_counter() - t0:.1f} s)",
+            {k: v for k, v in kept.items() if not isinstance(v, dict)})
 
     t0 = time.perf_counter()
     gj_rows, gj_launches, gj = public_ops_phase(
@@ -1737,6 +2159,7 @@ def main() -> int:
                    "f32_checks": f32_err, "bf16_checks": bf16_stats,
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
+                   "kept_set": kept,
                    "public_ops": gj, "service": service,
                    "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,

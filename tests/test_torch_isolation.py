@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of `yolov8_vit_tpu_torch`, and
-not chip_smoke.py, imports jax, flax or the JAX package, or a package the
-GPU machine lacks (msgpack, ml_dtypes, cv2, requests); PIL only inside functions
-(host decode).  Checked statically with `ast`, and by importing every
-module in a subprocess whose sys.modules poisons those names."""
+not its root scripts (chip_smoke.py, nms_cost.py), imports jax, flax or
+the JAX package, or a package the GPU machine lacks (msgpack, ml_dtypes,
+cv2, requests); PIL only inside functions (host decode).  Checked
+statically with `ast`, and by importing every module in a subprocess
+whose sys.modules poisons those names."""
 import ast
 import os
 import subprocess
@@ -16,8 +17,11 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "yolov8_vit_tpu", "msgpack",
              "ml_dtypes", "cv2", "optax", "orbax", "requests"}
 
 
+ROOT_SCRIPTS = ("chip_smoke.py", "nms_cost.py")
+
+
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ROOT_SCRIPTS]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]
@@ -57,7 +61,7 @@ def test_import_all_with_jax_poisoned():
     mods = sorted(
         "yolov8_vit_tpu_torch." + os.path.relpath(p, PKG)[:-3]
         .replace(os.sep, ".").replace(".__init__", "")
-        for p in _port_files()[1:])
+        for p in _port_files()[len(ROOT_SCRIPTS):])
     code = "\n".join([
         "import sys, importlib",
         f"for name in {sorted(FORBIDDEN)!r}:",
@@ -65,7 +69,7 @@ def test_import_all_with_jax_poisoned():
         f"sys.path.insert(0, {REPO!r})",
         f"for m in {mods!r}:",
         "    importlib.import_module(m.removesuffix('.__init__'))",
-        "import chip_smoke",
+        "import chip_smoke, nms_cost",
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r} and sys.modules[m] is not None]",
         "assert not leaked, leaked",

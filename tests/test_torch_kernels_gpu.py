@@ -4,6 +4,7 @@ present (a CUDA kernel has no interpret mode).  On the GPU machine, which
 has no jax for tests/conftest.py, run them with
 `python3 -m pytest tests/test_torch_kernels_gpu.py -q --noconftest`.
 chip_smoke.py repeats these checks at the main path's shapes."""
+import numpy as np
 import pytest
 import torch
 
@@ -12,6 +13,7 @@ from yolov8_vit_tpu_torch.ops.attention import (attn_block_i8_plain,
                                                 flash_attention_plain,
                                                 fused_attention_block_plain)
 from yolov8_vit_tpu_torch.ops.fused_region import region_b1b2_plain
+from yolov8_vit_tpu_torch.ops import nms
 from yolov8_vit_tpu_torch.ops.nms import (mask_scan_plain, nms_argmax_ml_plain,
                                           nms_argmax_plain,
                                           single_label_candidates)
@@ -19,6 +21,8 @@ from yolov8_vit_tpu_torch.ops import quant
 from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain, quant_mlp_plain,
                                             quant_mlp_ln_plain,
                                             quantize_weight)
+
+from nms_cases import a_cases, b_case, b_grid, crowded_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +62,128 @@ def test_kernel_b_matches_plain(dev):
     got = ops.area_sorted_nms(boxes, scores, valid)
     pri = torch.where(valid & (scores > 0.35), ops.box_area(boxes), -1e9)
     assert torch.equal(got, mask_scan_plain(boxes, pri, 0.45))
+
+
+# (window, chunk) of kernels A and B: the defaults, and sizes that cross
+# window and chunk boundaries at the test shapes (the select path too)
+_NMS_SIZES = [(nms.NMS_WINDOW, nms.NMS_CHUNK), (4096, 256), (64, 32)]
+
+
+def _sizes(monkeypatch, window, chunk):
+    monkeypatch.setattr(nms, "NMS_WINDOW", window)
+    monkeypatch.setattr(nms, "NMS_CHUNK", chunk)
+
+
+def _assert_a(got, ref):
+    for name, a, b in zip(("num_dets", "boxes", "scores", "labels"), got,
+                          ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("window,chunk", _NMS_SIZES)
+@pytest.mark.parametrize("case", ["dense", "dense_ties", "crowded",
+                                  "all_above", "none_above", "at_threshold",
+                                  "edges"])
+def test_kernel_a_cases_match_plain(dev, monkeypatch, case, window, chunk):
+    """tests/test_torch_nms_order.py's cases (held there against JAX by the
+    rehearsal of this kernel's order), two images a batch: the case and
+    its boxes shifted by 1.5 px."""
+    b, s = (torch.from_numpy(a) for a in a_cases()[case])
+    boxes = torch.stack([b, b + 1.5]).to(dev)
+    scores = torch.stack([s, s.flip(0)]).to(dev)
+    _sizes(monkeypatch, window, chunk)
+    got = nms.nms_argmax_ml_kernel(boxes, scores, 0.65, 0.25, 100)
+    _assert_a(got, nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100))
+
+
+def test_kernel_a_more_candidates_than_a_chunk_before_100_kept(dev):
+    """The crowd: 10,000 candidates, one kept a cluster and class, so every
+    chunk and window is decided before the pool runs out."""
+    b, s = crowded_scene(2000, 2)
+    boxes, scores = (torch.from_numpy(a)[None].to(dev) for a in (b, s))
+    got = ops.efficient_nms_scan(boxes, scores)
+    assert 0 < int(got[0][0]) < 100
+    _assert_a(got, nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100))
+
+
+def _scene_1280(g, b, n, c, hot):
+    """Clustered boxes over a 1280 x 1280 input, a `hot` share of anchors
+    with one class above the threshold (scores on a 1/16 grid)."""
+    ctr = torch.rand(b, n, 2, generator=g) * 1200 + 40
+    wh = torch.rand(b, n, 2, generator=g) * 140 + 20
+    boxes = torch.round(torch.cat([ctr - wh / 2, ctr + wh / 2], -1) * 2) / 2
+    scores = torch.rand(b, n, c, generator=g) * 0.2
+    on = torch.rand(b, n, generator=g) < hot
+    cls = torch.randint(0, c, (b, n), generator=g)
+    val = torch.round((torch.rand(b, n, generator=g) * 0.65 + 0.3) * 16) / 16
+    scores.scatter_(2, cls[..., None], torch.where(
+        on, val, scores.gather(2, cls[..., None])[..., 0])[..., None])
+    return boxes, scores
+
+
+@pytest.mark.parametrize("hot", [0.2, 1.0])
+def test_kernel_a_at_1280(dev, hot):
+    """A 1280 x 1280 input: 33,600 anchors x 5 classes = 168,000 entries a
+    frame, 32 frames (the old kernel's shared memory held 58,095); with
+    every anchor hot, 33,600 candidates a frame, eight windows and more."""
+    boxes, scores = (t.to(dev) for t in _scene_1280(_gen(17), 32, 33600, 5,
+                                                    hot))
+    got = ops.efficient_nms_scan(boxes, scores)
+    assert int(got[0].min()) == 100
+    _assert_a(got, nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100))
+
+
+def test_kernel_a_nan_score_keeps_nothing(dev):
+    b, s = (torch.from_numpy(a) for a in a_cases()["dense"])
+    scores = torch.stack([s, s]).to(dev)
+    scores[1, 7, 2] = float("nan")
+    boxes = torch.stack([b, b]).to(dev)
+    got = ops.efficient_nms_scan(boxes, scores)
+    assert int(got[0][0]) == 100 and int(got[0][1]) == 0
+    _assert_a(got, nms_argmax_ml_plain(boxes, scores, 0.65, 0.25, 100))
+
+
+@pytest.mark.parametrize("window,chunk", _NMS_SIZES)
+@pytest.mark.parametrize("t", [1, 100, 129, 1000])
+def test_kernel_b_rows_match_plain(dev, monkeypatch, t, window, chunk):
+    """Area ties, a pair at IoU exactly .45, a zero-area row, scores
+    exactly at 0.35, invalid rows; three images a batch.  The kernel makes
+    the priorities from f32 boxes and scores."""
+    rows = [b_case(t, 20 + i) for i in range(3)]
+    boxes, scores, valid = (torch.from_numpy(np.stack(x)).to(dev)
+                            for x in zip(*rows))
+    _sizes(monkeypatch, window, chunk)
+    got = nms.mask_scan_kernel(boxes, scores, valid, 0.45, 0.35)
+    pri = nms.mask_priority(boxes, scores, valid, 0.35)
+    assert torch.equal(got, mask_scan_plain(boxes, pri, 0.45))
+    assert torch.equal(ops.area_sorted_nms(boxes, scores, valid), got)
+
+
+@pytest.mark.parametrize("window,chunk", _NMS_SIZES)
+def test_kernel_b_keeps_more_than_its_shared_copy(dev, monkeypatch, window,
+                                                  chunk):
+    """3,000 rows of which about 2,600 are kept: past the 1,024 kept boxes
+    the kernel holds in shared memory, it reads the rest from its kept
+    list in device memory."""
+    rows = [b_grid(3000, 40 + i) for i in range(2)]
+    boxes, scores, valid = (torch.from_numpy(np.stack(x)).to(dev)
+                            for x in zip(*rows))
+    _sizes(monkeypatch, window, chunk)
+    got = nms.mask_scan_kernel(boxes, scores, valid, 0.45, 0.35)
+    pri = nms.mask_priority(boxes, scores, valid, 0.35)
+    assert int(got.sum(1).min()) > 1024
+    assert torch.equal(got, mask_scan_plain(boxes, pri, 0.45))
+
+
+def test_kernel_b_bf16_boxes_take_the_wrapper_priority(dev):
+    """bf16 boxes: the area is taken in bf16 (as JAX takes it), by
+    mask_priority, and handed to the kernel."""
+    bx, sc, valid = (torch.from_numpy(x).to(dev) for x in b_case(100, 30))
+    bx16 = bx.to(torch.bfloat16)
+    got = ops.area_sorted_nms(bx16, sc, valid)
+    pri = nms.mask_priority(bx16, sc, valid, 0.35)
+    assert torch.equal(got, mask_scan_plain(bx16.float()[None], pri[None],
+                                            0.45)[0])
 
 
 def _w(g, fin, fout, dev):
@@ -210,21 +336,78 @@ def test_kernel_g_silu_matches_plain(dev, dtype):
         float((got - ref).abs().max())
 
 
-def test_kernel_g_refuses_odd_k(dev):
+def test_kernel_g_takes_odd_k(dev):
+    """K = 40: the wrapper pads x's columns and the weight to 48."""
     g = _gen(8)
     x = torch.randn(8, 40, generator=g).to(dev)
     w, s, b = _w(g, 40, 16, dev)
-    with pytest.raises(ValueError):
-        ops.quant_dense_fused(x, w, s, b)
+    assert torch.equal(ops.quant_dense_fused(x, w, s, b),
+                       quant_dense_plain(x, w, s, b))
 
 
-def test_kernel_g_refuses_n_off_8(dev):
-    """The output's rows are written by TMA, which takes 16-byte strides."""
+def test_kernel_g_takes_n_off_8(dev):
+    """N = 20: the output's rows are written by TMA, which takes 16-byte
+    strides, so the wrapper pads N to 32 and slices."""
     g = _gen(8)
     x = torch.randn(8, 32, generator=g).to(dev)
     w, s, b = _w(g, 32, 20, dev)
-    with pytest.raises(ValueError):
-        ops.quant_dense_fused(x, w, s, b)
+    assert torch.equal(ops.quant_dense_fused(x, w, s, b),
+                       quant_dense_plain(x, w, s, b))
+
+
+@pytest.mark.parametrize("m,k,n", [(77, 40, 20), (300, 100, 30), (5, 8, 3),
+                                   (197, 776, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_g_odd_shapes_bit_for_bit(dev, dtype, m, k, n):
+    """K and N off 16 and 8, bit for bit, with the weight's (out, in) copy
+    made by the wrapper, given padded (`padded_t`, as QDense.derive makes
+    it) or given as the plain transpose."""
+    g = _gen(18)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    w, s, b = _w(g, k, n, dev)
+    ref = quant_dense_plain(x, w, s, b)
+    for w_t in (None, quant.padded_t(w), w.t().contiguous()):
+        got = ops.quant_dense_fused(x, w, s, b, w_t=w_t)
+        assert torch.equal(got, ref), (int((got != ref).sum()),
+                                       float((got.float() - ref.float())
+                                             .abs().max()))
+
+
+@pytest.mark.parametrize("m,d,hid", [(300, 40, 100), (197, 200, 780),
+                                     (5, 8, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_c_h_odd_widths_match_plain(dev, dtype, m, d, hid):
+    """D and hidden widths off 16: rows, weights, scales and biases
+    zero-padded, LN statistics over the real D."""
+    g = _gen(19)
+    x = torch.randn(m, d, generator=g).to(dev, dtype)
+    res = torch.randn(m, d, generator=g).to(dev, dtype)
+    ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+          (0.1 * torch.randn(d, generator=g)).to(dev))
+    w = (*_w(g, d, hid, dev), *_w(g, hid, d, dev))
+    got = ops.quant_mlp_ln_fused(x, *ln, *w)
+    assert got.shape == x.shape
+    _close(got, quant_mlp_ln_plain(x, *ln, *w), dtype, int8=True)
+    _close(ops.quant_mlp_fused(x, res, *w), quant_mlp_plain(x, res, *w),
+           dtype, int8=True)
+
+
+@pytest.mark.parametrize("shape", [(3, 17, 40, 2), (2, 33, 24, 3),
+                                   (2, 50, 100, 2), (2, 65, 48, 3),
+                                   (4, 197, 120, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_d_odd_widths_match_plain(dev, dtype, shape):
+    """D off 16 and head dims the SDPA core does not run (20, 8, 50, 60:
+    each head zero-padded to 32, 16, 64, 64), and D = 48 (head dim 16)."""
+    b, t, d, heads = shape
+    g = _gen(20)
+    x = torch.randn(b, t, d, generator=g).to(dev, dtype)
+    ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+          (0.1 * torch.randn(d, generator=g)).to(dev))
+    args = (x, *ln, *_w(g, d, 3 * d, dev), *_w(g, d, d, dev))
+    got = ops.fused_attention_block_i8(*args, heads=heads)
+    assert got.shape == x.shape
+    _close(got, attn_block_i8_plain(*args, heads=heads), dtype, int8=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -297,3 +297,41 @@ def test_entry_points_default_to_cuda():
         TwoStagePipeline(det_cfg=DetectConfig(**DET_KW),
                          vit_spec=ViTSpec(**VIT_KW, quant="w8a",
                                           attn_impl="fused"))
+
+
+def test_conv_f32_tf32_switch_is_thread_safe(monkeypatch):
+    """conv_f32 sets cuDNN's process-wide TF32 flag around its conv: from
+    several threads at once, with mixed operands_in_bf16, every conv must
+    see its own call's setting, and the flag must end as it started.  The
+    recording conv sleeps, so that unlocked set / restore pairs would
+    interleave."""
+    import threading
+    import time
+
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    seen, real_conv = [], torch.nn.functional.conv2d
+
+    def recording_conv(x, w, *args, **kw):
+        want = bool(x[0, 0, 0, 0])
+        time.sleep(0.002)
+        seen.append((want, torch.backends.cudnn.allow_tf32))
+        return real_conv(x, w, *args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording_conv)
+    start = torch.backends.cudnn.allow_tf32
+    w = torch.ones(1, 1, 1, 1)
+
+    def worker(i):
+        for j in range(10):
+            bf16 = (i + j) % 2 == 0
+            y.conv_f32(torch.full((1, 1, 2, 2), float(bf16)), w,
+                       operands_in_bf16=bf16)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(seen) == 60
+    assert all(want == flag for want, flag in seen), seen
+    assert torch.backends.cudnn.allow_tf32 == start

@@ -217,8 +217,9 @@ def test_kernel_c_recompute_order_matches_plain_and_jax(m, d, hid, seed):
 
 
 def test_kernel_c_h_wrapper_checks_rows_and_out():
-    """The launch chain refuses, before any build, widths off the int8
-    GEMM's 16-byte rows and an `out` that does not fit the rows."""
+    """The launch chain refuses, before any build, weights not padded to
+    the int8 GEMM's 16-byte rows (the public wrappers pad them with
+    `transposed_i8`) and an `out` that does not fit the rows."""
     rng = np.random.default_rng(24)
     ln = tuple(map(_t, _ln(rng, 64)))
     _, w1, s1, b1 = map(_t, _weights(rng, 64, 256))
@@ -233,3 +234,112 @@ def test_kernel_c_h_wrapper_checks_rows_and_out():
         with pytest.raises(ValueError, match="does not fit"):
             quant._launch_mlp("kernel H", x, x, None, w1t, s1, b1, w2t, s2,
                               b2, 0.0, out=bad)
+
+
+# ---- the wrappers' zero padding of widths off 16 ----------------------------
+@pytest.mark.parametrize("m,k,n", [(37, 40, 20), (16, 100, 30), (5, 8, 3)])
+def test_kernel_g_padding_matches_jax(m, k, n):
+    """Kernel G's operands as its wrapper pads them (x's columns to 16, the
+    (out, in) weight to (16, 16) multiples, scales and biases with zeros),
+    through the plain arithmetic and sliced: bit for bit the plain version,
+    and JAX's kernel within tests/test_torch_quant_dense.py's 1e-5."""
+    rng = np.random.default_rng(k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    _, wq, s, b = _weights(rng, k, n)
+    t = list(map(_t, (x, wq, s, b)))
+    wt = quant.transposed_i8(t[1])
+    assert wt.shape == (quant.round_up16(n), quant.round_up16(k))
+    np_, kp = wt.shape
+    got = quant.quant_dense_plain(quant.pad_cols(t[0], kp), wt.t(),
+                                  quant.pad_cols(t[2], np_),
+                                  quant.pad_cols(t[3], np_))[:, :n]
+    assert torch.equal(got, quant.quant_dense_plain(*t))
+    ref = np.asarray(jq.quant_dense_fused(*map(jnp.asarray, (x, wq, s, b))))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _padded_mlp(x, ln, w1, s1, b1, w2, s2, b2, residual=None):
+    """Kernels C (ln given) and H as their wrappers pad them: rows to
+    Dp, LN statistics over the real D, fc1 to Hp (its padded columns
+    gelu(0) = 0), fc2 back to Dp, sliced."""
+    m, d = x.shape
+    w1t, w2t = quant.transposed_i8(w1), quant.transposed_i8(w2)
+    hp, dp = w1t.shape
+    h = x if ln is None else quant.layernorm_f32(x, *ln, 1e-6)
+    a = quant.gelu_tanh(quant.quant_dense_pre(
+        quant.pad_cols(h, dp), w1t.t(), quant.pad_cols(s1, hp),
+        quant.pad_cols(b1, hp)))
+    assert bool((a[:, w1.shape[1]:] == 0).all())
+    y = quant.quant_dense_pre(a, w2t.t(), quant.pad_cols(s2, dp),
+                              quant.pad_cols(b2, dp))
+    return (x if residual is None else residual) + y[:, :d]
+
+
+@pytest.mark.parametrize("m,d,hid", [(30, 40, 100), (20, 24, 72)])
+def test_kernel_c_h_padding_matches_jax(m, d, hid):
+    rng = np.random.default_rng(d * hid)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    res = rng.normal(size=(m, d)).astype(np.float32)
+    lns, lnb = _ln(rng, d)
+    _, w1, s1, b1 = _weights(rng, d, hid)
+    _, w2, s2, b2 = _weights(rng, hid, d)
+    w = (w1, s1, b1, w2, s2, b2)
+    tw = list(map(_t, w))
+    got_c = _padded_mlp(_t(x), (_t(lns), _t(lnb)), *tw)
+    assert torch.equal(got_c, quant.quant_mlp_ln_plain(_t(x), _t(lns),
+                                                       _t(lnb), *tw))
+    ref_c = np.asarray(jq.quant_mlp_ln_fused(*map(jnp.asarray,
+                                                  (x, lns, lnb, *w))))
+    np.testing.assert_allclose(got_c.numpy(), ref_c, rtol=1e-5, atol=1e-5)
+    got_h = _padded_mlp(_t(x), None, *tw, residual=_t(res))
+    assert torch.equal(got_h, quant.quant_mlp_plain(_t(x), _t(res), *tw))
+    ref_h = np.asarray(jq.quant_mlp_fused(*map(jnp.asarray, (x, res, *w))))
+    np.testing.assert_allclose(got_h.numpy(), ref_h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,d,heads", [(2, 9, 40, 2), (2, 7, 24, 3),
+                                         (1, 5, 100, 2)])
+def test_kernel_d_padding_matches_jax(b, t, d, heads):
+    """Kernel D where the head dim (20, 8, 50) is not one the SDPA core
+    runs: each head of q, k, v zero-padded to 32, 16 or 64 columns and D to
+    a multiple of 16 (`_head_padded_i8`), through the plain arithmetic with
+    the real head dim's scale: the padded q, k, v columns are zero, and the
+    result meets JAX's kernel D within its 1e-5."""
+    rng = np.random.default_rng(d + heads)
+    x = rng.normal(size=(b, t, d)).astype(np.float32)
+    lns, lnb = _ln(rng, d)
+    _, wq, sq, bq = _weights(rng, d, 3 * d)
+    _, wp, sp, bp = _weights(rng, d, d)
+    hd = d // heads
+    hdp = min(h for h in attention.SDPA_HEAD_DIMS if h >= hd)
+    wqt, sqp, bqp, wpt, spp, bpp = attention._head_padded_i8(
+        *map(_t, (wq, sq, bq, wp, sp, bp)), heads, hdp)
+    dp, dh = wpt.shape
+    assert wqt.shape == (3 * dh, dp) and dh == heads * hdp
+    xx = _t(x).reshape(-1, d)
+    h = quant.layernorm_f32(xx, _t(lns), _t(lnb), 1e-6)
+    qkv = quant.quant_dense_pre(quant.pad_cols(h, dp), wqt.t(), sqp, bqp)
+    q, k, v = qkv.reshape(b, t, 3, heads, hdp).unbind(2)
+    assert bool((qkv.reshape(b, t, 3, heads, hdp)[..., hd:] == 0).all())
+    s = torch.einsum("bqhc,bkhc->bhqk", q * hd ** -0.5, k)
+    o = attention._softmax_pv(s, v, torch.float32, torch.float32)
+    y = quant.quant_dense_pre(o.reshape(b * t, dh), wpt.t(), spp, bpp)
+    got = (xx + y[:, :d]).reshape(b, t, d)
+    args = (x, lns, lnb, wq, sq, bq, wp, sp, bp)
+    ref = np.asarray(jatt.fused_attention_block_i8(*map(jnp.asarray, args),
+                                                   heads=heads))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    plain = attention.attn_block_i8_plain(*map(_t, args), heads=heads)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_transposed_i8_pads_and_takes_plain_transposes():
+    w = torch.randint(-127, 128, (40, 20), dtype=torch.int8)
+    want = torch.zeros(32, 48, dtype=torch.int8)
+    want[:20, :40] = w.t()
+    assert torch.equal(quant.transposed_i8(w), want)
+    assert torch.equal(quant.transposed_i8(w, w.t().contiguous()), want)
+    assert quant.transposed_i8(w, want) is want
+    with pytest.raises(ValueError, match="does not fit"):
+        quant.transposed_i8(w, want[:, :40].contiguous())

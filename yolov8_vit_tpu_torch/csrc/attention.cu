@@ -62,49 +62,58 @@ SdpaArgs packed_qkv(const void* qkv, void* heads_out, int dtype, int t,
   return a;
 }
 
+// Rows of x and out are ld >= d apart (the columns past d zero): the
+// QKV GEMM's depth and the proj GEMM's width.  dh = heads x the head dim
+// the SDPA core runs (a real head dim padded up to one the core takes,
+// with zero columns in each head): the width of q, k, v and the heads'
+// output, and the proj GEMM's depth.
 template <typename T>
-int run(const void* x, int nb, int t, int d, int heads, int t_real,
-        float scale, const float* ln_s, const float* ln_b, float eps,
-        const int8_t* wqt, const float* sq, const float* bq,
+int run(const void* x, int nb, int t, int d, int ld, int dh, int heads,
+        int t_real, float scale, const float* ln_s, const float* ln_b,
+        float eps, const int8_t* wqt, const float* sq, const float* bq,
         const int8_t* wpt, const float* sp, const float* bp, int8_t* hq,
         float* sx, void* qkv, void* heads_out, int8_t* oq, float* so,
         void* out, cudaStream_t st) {
-  const int m = nb * t, hd = d / heads;
-  int e = ln_quant_rows<T>(x, m, d, ln_s, ln_b, eps, hq, sx, st);
+  const int m = nb * t, hd = dh / heads;
+  int e = ln_quant_rows<T>(x, m, d, ld, ln_s, ln_b, eps, hq, sx, st);
   if (e) return e;
-  e = gemm_i8<T, kEpiBias>(hq, wqt, m, 3 * d, d,
+  e = gemm_i8<T, kEpiBias>(hq, wqt, m, 3 * dh, ld,
                            I8Epi{sx, sq, bq, nullptr, qkv, nullptr, nullptr},
                            st);
   if (e) return e;
   constexpr int code = sizeof(T) == 2 ? kBF16 : kF32;
-  e = launch_sdpa(packed_qkv(qkv, heads_out, code, t, d, heads, t_real,
+  e = launch_sdpa(packed_qkv(qkv, heads_out, code, t, dh, heads, t_real,
                              scale), code, nb, hd, st);
   if (e) return e;
-  e = ln_quant_rows<T>(heads_out, m, d, nullptr, nullptr, 0.f, oq, so, st);
+  e = ln_quant_rows<T>(heads_out, m, dh, dh, nullptr, nullptr, 0.f, oq, so,
+                       st);
   if (e) return e;
   return gemm_i8<T, kEpiResidual>(
-      oq, wpt, m, d, d, I8Epi{so, sp, bp, x, out, nullptr, nullptr}, st);
+      oq, wpt, m, ld, dh, I8Epi{so, sp, bp, x, out, nullptr, nullptr}, st);
 }
 
 }  // namespace
 
-// wqt (3d, d) and wpt (d, d): the int8 kernels transposed to (out, in).
-// `scale` is hd^-0.5 already rounded to the activation dtype.
+// x and out (nb * t, ld), the real width d <= ld; wqt (3 dh, ld) and wpt
+// (ld, dh): the int8 kernels transposed to (out, in), zero-padded, the
+// qkv rows of each head padded to dh / heads; ld and dh multiples of 16.
+// `scale` is the real head dim's hd^-0.5, rounded to the activation dtype.
 extern "C" int launch_attn_block_i8(
-    const void* x, int dtype, int nb, int t, int d, int heads, int t_real,
-    float scale, const float* ln_s, const float* ln_b, float eps,
-    const int8_t* wqt, const float* sq, const float* bq, const int8_t* wpt,
-    const float* sp, const float* bp, int8_t* hq, float* sx, void* qkv,
-    void* heads_out, int8_t* oq, float* so, void* out, void* stream) {
+    const void* x, int dtype, int nb, int t, int d, int ld, int dh,
+    int heads, int t_real, float scale, const float* ln_s, const float* ln_b,
+    float eps, const int8_t* wqt, const float* sq, const float* bq,
+    const int8_t* wpt, const float* sp, const float* bp, int8_t* hq,
+    float* sx, void* qkv, void* heads_out, int8_t* oq, float* so, void* out,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return run<__nv_bfloat16>(x, nb, t, d, heads, t_real, scale, ln_s, ln_b,
-                              eps, wqt, sq, bq, wpt, sp, bp, hq, sx, qkv,
-                              heads_out, oq, so, out, st);
+    return run<__nv_bfloat16>(x, nb, t, d, ld, dh, heads, t_real, scale,
+                              ln_s, ln_b, eps, wqt, sq, bq, wpt, sp, bp, hq,
+                              sx, qkv, heads_out, oq, so, out, st);
   if (dtype == kF32)
-    return run<float>(x, nb, t, d, heads, t_real, scale, ln_s, ln_b, eps,
-                      wqt, sq, bq, wpt, sp, bp, hq, sx, qkv, heads_out, oq,
-                      so, out, st);
+    return run<float>(x, nb, t, d, ld, dh, heads, t_real, scale, ln_s, ln_b,
+                      eps, wqt, sq, bq, wpt, sp, bp, hq, sx, qkv, heads_out,
+                      oq, so, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

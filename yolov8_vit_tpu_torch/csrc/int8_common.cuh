@@ -63,12 +63,16 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 }
 
 // One warp per row: LayerNorm where kLN, then per-row symmetric int8
-// quantization.  x (m, d) -> q (m, d), qs (m,).  `zero` (m,), where not
-// null, is set to 0: the row-amax buffer of the fc1 that follows.
+// quantization.  x (m, ld) -> q (m, ld), qs (m,); the statistics, the amax
+// and the codes are over the row's first d columns, and q's columns d..ld
+// are zero (the zero padding of the GEMM operands that follow).  `zero`
+// (m,), where not null, is set to 0: the row-amax buffer of the fc1 that
+// follows.
 constexpr int kRowsPerBlock = 8;
 
 template <typename InT, bool kLN>
 __global__ void ln_quant_rows_kernel(const InT* __restrict__ x, int m, int d,
+                                     int ld,
                                      const float* __restrict__ ln_scale,
                                      const float* __restrict__ ln_bias,
                                      float eps, int8_t* __restrict__ q,
@@ -77,7 +81,7 @@ __global__ void ln_quant_rows_kernel(const InT* __restrict__ x, int m, int d,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + warp;
   if (row >= m) return;
-  const InT* xr = x + static_cast<size_t>(row) * d;
+  const InT* xr = x + static_cast<size_t>(row) * ld;
   float mu = 0.f, r = 1.f;
   if (kLN) {
     float s = 0.f;
@@ -99,22 +103,23 @@ __global__ void ln_quant_rows_kernel(const InT* __restrict__ x, int m, int d,
   }
   amax = warp_max(amax);
   const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
-  int8_t* qr = q + static_cast<size_t>(row) * d;
+  int8_t* qr = q + static_cast<size_t>(row) * ld;
   for (int i = lane; i < d; i += 32) {
     float h = to_f(xr[i]);
     if (kLN) h = (h - mu) * r * ln_scale[i] + ln_bias[i];
     const float v = fminf(fmaxf(rintf(__fdiv_rn(h, scale)), -127.f), 127.f);
     qr[i] = static_cast<int8_t>(v);
   }
+  for (int i = d + lane; i < ld; i += 32) qr[i] = 0;
   if (lane == 0) {
     qs[row] = scale;
     if (zero != nullptr) zero[row] = 0u;
   }
 }
 
-// ln_scale == nullptr: no LayerNorm
+// ln_scale == nullptr: no LayerNorm.  Rows of x and q are ld apart.
 template <typename InT>
-int ln_quant_rows(const void* x, int m, int d, const float* ln_scale,
+int ln_quant_rows(const void* x, int m, int d, int ld, const float* ln_scale,
                   const float* ln_bias, float eps, int8_t* q, float* qs,
                   cudaStream_t stream, unsigned* zero = nullptr) {
   if (m == 0) return 0;
@@ -122,12 +127,12 @@ int ln_quant_rows(const void* x, int m, int d, const float* ln_scale,
   if (ln_scale != nullptr)
     ln_quant_rows_kernel<InT, true><<<blocks, 32 * kRowsPerBlock, 0,
                                       stream>>>(
-        static_cast<const InT*>(x), m, d, ln_scale, ln_bias, eps, q, qs,
+        static_cast<const InT*>(x), m, d, ld, ln_scale, ln_bias, eps, q, qs,
         zero);
   else
     ln_quant_rows_kernel<InT, false><<<blocks, 32 * kRowsPerBlock, 0,
                                        stream>>>(
-        static_cast<const InT*>(x), m, d, nullptr, nullptr, 0.f, q, qs,
+        static_cast<const InT*>(x), m, d, ld, nullptr, nullptr, 0.f, q, qs,
         zero);
   return static_cast<int>(cudaGetLastError());
 }
@@ -136,7 +141,7 @@ int ln_quant_rows(const void* x, int m, int d, const float* ln_scale,
 // a (m, k) int8 row-major; w (n, k) int8: the weight transposed to (out,
 // in), so both operands are K-major, the one layout wgmma takes for 8-bit
 // types.  k % 16 == 0, n % 8 == 0 and 16-byte aligned bases (TMA's rules
-// for the rows of a, w and out).
+// for the rows of a, w and out): the wrappers zero-pad other widths.
 //
 // Warp-specialised sm_90a kernel.  A CTA computes a 256 x 128 tile: one
 // producer warp's thread streams 128-deep k-tiles (one 128-byte row of a

@@ -42,28 +42,31 @@ namespace {
 
 // ln_s == nullptr: no LayerNorm (kernel H); `res` is the residual stream
 // (x itself for kernel C).  amax (m,) is scratch for the fc1 row maxima.
+// Rows of x, res and out are ld >= d apart (the GEMMs' width; columns past
+// d are zero), and the LN and row quantize take the first d columns.
 template <typename T>
-int run(const void* x, const void* res, int m, int d, int hid,
+int run(const void* x, const void* res, int m, int d, int ld, int hid,
         const float* ln_s, const float* ln_b, float eps, const int8_t* w1t,
         const float* s1, const float* b1, const int8_t* w2t, const float* s2,
         const float* b2, int8_t* hq, float* sx, unsigned* amax, int8_t* aq,
         float* sa, void* out, cudaStream_t st) {
-  int e = ln_quant_rows<T>(x, m, d, ln_s, ln_b, eps, hq, sx, st, amax);
+  int e = ln_quant_rows<T>(x, m, d, ld, ln_s, ln_b, eps, hq, sx, st, amax);
   if (e) return e;
   const I8Epi fc1{sx, s1, b1, nullptr, aq, amax, sa};
-  e = gemm_i8<int8_t, kEpiGeluAmax>(hq, w1t, m, hid, d, fc1, st);
+  e = gemm_i8<int8_t, kEpiGeluAmax>(hq, w1t, m, hid, ld, fc1, st);
   if (e) return e;
-  e = gemm_i8<int8_t, kEpiGeluQuant>(hq, w1t, m, hid, d, fc1, st);
+  e = gemm_i8<int8_t, kEpiGeluQuant>(hq, w1t, m, hid, ld, fc1, st);
   if (e) return e;
   return gemm_i8<T, kEpiResidual>(
-      aq, w2t, m, d, hid, I8Epi{sa, s2, b2, res, out, nullptr, nullptr}, st);
+      aq, w2t, m, ld, hid, I8Epi{sa, s2, b2, res, out, nullptr, nullptr},
+      st);
 }
 
 template <typename T>
 int run_dense(const void* x, int m, int k, int n, const int8_t* wt,
               const float* sw, const float* bias, int silu, int8_t* xq,
               float* sx, void* out, cudaStream_t st) {
-  int e = ln_quant_rows<T>(x, m, k, nullptr, nullptr, 0.f, xq, sx, st);
+  int e = ln_quant_rows<T>(x, m, k, k, nullptr, nullptr, 0.f, xq, sx, st);
   if (e) return e;
   const I8Epi ep{sx, sw, bias, nullptr, out, nullptr, nullptr};
   if (silu) return gemm_i8<T, kEpiBiasSilu>(xq, wt, m, n, k, ep, st);
@@ -72,12 +75,15 @@ int run_dense(const void* x, int m, int k, int n, const int8_t* wt,
 
 }  // namespace
 
-// Kernels C and H.  w1t (hid, d) and w2t (d, hid): the int8 kernels
-// transposed to (out, in).  ln_s == nullptr skips the LayerNorm (H); res
-// is the residual stream in x's dtype (x itself for C).  Scratch: hq (m,
-// d) and aq (m, hid) int8, sx, amax and sa (m,) 4-byte words.
+// Kernels C and H.  x, res and out (m, ld), the real width d <= ld (the
+// columns past d zero); w1t (hid, ld) and w2t (ld, hid): the int8 kernels
+// transposed to (out, in) and zero-padded; ld and hid multiples of 16.
+// ln_s == nullptr skips the LayerNorm (H); res is the residual stream in
+// x's dtype (x itself for C).  Scratch: hq (m, ld) and aq (m, hid) int8,
+// sx, amax and sa (m,) 4-byte words.
 extern "C" int launch_quant_mlp(const void* x, const void* res, int dtype,
-                                int m, int d, int hid, const float* ln_s,
+                                int m, int d, int ld, int hid,
+                                const float* ln_s,
                                 const float* ln_b, float eps,
                                 const int8_t* w1t, const float* s1,
                                 const float* b1, const int8_t* w2t,
@@ -87,16 +93,18 @@ extern "C" int launch_quant_mlp(const void* x, const void* res, int dtype,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return run<__nv_bfloat16>(x, res, m, d, hid, ln_s, ln_b, eps, w1t, s1,
-                              b1, w2t, s2, b2, hq, sx, amax, aq, sa, out, st);
+    return run<__nv_bfloat16>(x, res, m, d, ld, hid, ln_s, ln_b, eps, w1t,
+                              s1, b1, w2t, s2, b2, hq, sx, amax, aq, sa, out,
+                              st);
   if (dtype == kF32)
-    return run<float>(x, res, m, d, hid, ln_s, ln_b, eps, w1t, s1, b1, w2t,
-                      s2, b2, hq, sx, amax, aq, sa, out, st);
+    return run<float>(x, res, m, d, ld, hid, ln_s, ln_b, eps, w1t, s1, b1,
+                      w2t, s2, b2, hq, sx, amax, aq, sa, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Kernel G.  wt (n, k): the int8 kernel transposed to (out, in); xq (m, k)
-// int8 and sx (m,) f32 scratch; out (m, n) in x's dtype.
+// int8 and sx (m,) f32 scratch; out (m, n) in x's dtype; k and n multiples
+// of 16 (the wrapper zero-pads x's columns and wt).
 extern "C" int launch_quant_dense(const void* x, int dtype, int m, int k,
                                   int n, const int8_t* wt, const float* sw,
                                   const float* bias, int silu, int8_t* xq,

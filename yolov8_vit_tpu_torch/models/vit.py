@@ -32,7 +32,8 @@ from yolov8_vit_tpu_torch.ops.attention import (flash_attention,
                                                 fused_attention_block,
                                                 fused_attention_block_i8,
                                                 sdpa_heads_plain)
-from yolov8_vit_tpu_torch.ops.quant import (quant_dense, quant_dense_fused,
+from yolov8_vit_tpu_torch.ops.quant import (padded_t, quant_dense,
+                                            quant_dense_fused,
                                             quant_mlp_ln_fused)
 
 
@@ -126,9 +127,10 @@ class QDense(nn.Module):
         self.register_buffer("bias", torch.zeros(fout))
 
     def derive(self, dtype) -> None:
-        """kernel_t: the int8 kernel transposed to (out, in), the layout
-        the CUDA kernels read."""
-        self.register_buffer("kernel_t", self.kernel_i8.t().contiguous(),
+        """kernel_t: the int8 kernel transposed to (out, in) and
+        zero-padded to multiples of 16, the layout the CUDA kernels read
+        (ops.quant.padded_t)."""
+        self.register_buffer("kernel_t", padded_t(self.kernel_i8),
                              persistent=False)
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -85,15 +86,26 @@ class Conv(nn.Module):
         self.bias.fill_(self.bias_init)
 
 
+# cuDNN's TF32 switch is one flag of the process, and the service runs
+# requests on threads: the set, the conv launch and the restore hold this
+# lock, so no conv of conv_f32 runs under another call's setting and the
+# flag ends as it started.  (A conv outside conv_f32 that runs meanwhile,
+# as the plain version of kernel J does, sees either setting; its operands
+# hold bf16 values, exact in TF32, so its result is the same.)
+_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _cudnn_tf32(allow: bool):
-    """cuDNN's TF32 switch for the convolutions inside the block only."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    """cuDNN's TF32 switch for the convolutions inside the block only,
+    under _TF32_LOCK."""
+    with _TF32_LOCK:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
 
 
 def conv_f32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,

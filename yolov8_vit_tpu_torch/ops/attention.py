@@ -25,7 +25,9 @@ import torch
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
-                                            quant_dense_pre, transposed_i8)
+                                            pad_cols, padded_t,
+                                            quant_dense_pre, round_up16,
+                                            transposed_i8)
 
 # head dims the CUDA SDPA core is built for
 SDPA_HEAD_DIMS = (16, 32, 64)
@@ -81,6 +83,29 @@ def attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv, wproj_i8,
     return (xx + y).reshape(b, t, d).to(dt)
 
 
+def _head_padded_i8(wqkv_i8, sqkv, bqkv, wproj_i8, sproj, bproj, heads,
+                    hdp):
+    """Kernel D's operands where the head dim hd is not one the SDPA core
+    takes: each head of q, k and v padded with zero columns to hdp (the
+    QKV weight's columns, scales and biases), the proj weight's rows to
+    match, and D to a multiple of 16.  The padded q, k and v columns are
+    exactly zero, so they add nothing to q.k and give zero output columns,
+    which the proj weight's zero rows drop."""
+    d = wqkv_i8.shape[0]
+    hd = d // heads
+
+    def per_head(v, lead):                  # (..., 3D) -> (..., 3 H hdp)
+        v = v.reshape(*lead, 3, heads, hd)
+        return pad_cols(v, hdp).reshape(*lead, 3 * heads * hdp)
+
+    wqt = padded_t(per_head(wqkv_i8, (d,)))
+    wp = pad_cols(wproj_i8.reshape(heads, hd, d).transpose(1, 2), hdp)
+    wpt = padded_t(wp.transpose(1, 2).reshape(heads * hdp, d))
+    dp = round_up16(d)
+    return (wqt, per_head(sqkv, ()), per_head(bqkv, ()), wpt,
+            pad_cols(sproj, dp), pad_cols(bproj, dp))
+
+
 def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
                              sqkv, bqkv, wproj_i8, sproj, bproj, *,
                              heads: int, ln_eps: float = 1e-6,
@@ -92,8 +117,10 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     (wqkv_t, wproj_t: their (out, in) copies, made once by a caller that
     runs many forwards; without them the wrapper transposes per call);
     scales, biases and LN params f32.  t_real < T masks key columns
-    >= t_real.  CUDA tensors launch kernel D; CPU tensors run the plain
-    version."""
+    >= t_real.  Any D with a head dim up to 64: a head dim the SDPA core
+    does not run (SDPA_HEAD_DIMS) is zero-padded to the next one, the
+    weights laid out so per call (`_head_padded_i8`).  CUDA tensors launch
+    kernel D; CPU tensors run the plain version."""
     b, t, d = x.shape
     f32 = torch.float32
     xc = x.contiguous()
@@ -103,32 +130,40 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
         return attn_block_i8_plain(xc, vecs[0], vecs[1], wqkv_i8, vecs[2],
                                    vecs[3], wproj_i8, vecs[4], vecs[5],
                                    heads=heads, ln_eps=ln_eps, t_real=t_real)
-    _sdpa_ok(x.dtype, d, heads)
-    if d % 16:
-        raise ValueError(f"kernel D's int8 GEMM takes D a multiple of 16; "
-                         f"got {d}")
-    m = b * t
-    dev = x.device
     dt = x.dtype
     hd = d // heads
-    wqt = transposed_i8(wqkv_i8, wqkv_t)
-    wpt = transposed_i8(wproj_i8, wproj_t)
-    hq = torch.empty(m, d, dtype=torch.int8, device=dev)
+    hdp = min((h for h in SDPA_HEAD_DIMS if h >= hd), default=None)
+    if dt not in DTYPE_CODES or d % heads or hdp is None:
+        raise ValueError(f"kernel D takes f32/bf16 with a head dim up to "
+                         f"{SDPA_HEAD_DIMS[-1]}; got {dt}, D={d}, "
+                         f"heads={heads}")
+    if hdp == hd:                           # D = heads x hdp: a multiple of 16
+        wqt = transposed_i8(wqkv_i8, wqkv_t)
+        wpt = transposed_i8(wproj_i8, wproj_t)
+    else:
+        wqt, vecs[2], vecs[3], wpt, vecs[4], vecs[5] = _head_padded_i8(
+            wqkv_i8, *vecs[2:4], wproj_i8, *vecs[4:], heads, hdp)
+    m = b * t
+    dp, dh = round_up16(d), heads * hdp
+    xp = pad_cols(xc.reshape(m, d), dp)
+    dev = x.device
+    hq = torch.empty(m, dp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
-    qkv = torch.empty(m, 3 * d, dtype=dt, device=dev)
-    heads_out = torch.empty(m, d, dtype=dt, device=dev)
-    oq = torch.empty(m, d, dtype=torch.int8, device=dev)
+    qkv = torch.empty(m, 3 * dh, dtype=dt, device=dev)
+    heads_out = torch.empty(m, dh, dtype=dt, device=dev)
+    oq = torch.empty(m, dh, dtype=torch.int8, device=dev)
     so_ = torch.empty(m, dtype=f32, device=dev)
-    out = torch.empty_like(xc)
+    out = torch.empty_like(xp)
     scale = float(torch.tensor(hd ** -0.5, dtype=dt))
     so = _build.lib("attention")
     fn = so.launch_attn_block_i8
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_float] + [ctypes.c_void_p] * 14)
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_float] + [ctypes.c_void_p] * 14)
+        fn.restype = ctypes.c_int
     p = [v.data_ptr() for v in vecs]
-    rc = fn(xc.data_ptr(), DTYPE_CODES[dt], b, t, d, heads,
+    rc = fn(xp.data_ptr(), DTYPE_CODES[dt], b, t, d, dp, dh, heads,
             t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
             wqt.data_ptr(), p[2], p[3], wpt.data_ptr(), p[4], p[5],
             hq.data_ptr(), sx.data_ptr(), qkv.data_ptr(),
@@ -136,7 +171,7 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
             out.data_ptr(), _build.stream_ptr())
     fused_attention_block_i8.launches += 1
     _build.check(so, rc, "attn_block_i8 (kernel D)")
-    return out
+    return out[:, :d].reshape(b, t, d)
 
 
 fused_attention_block_i8.launches = 0

@@ -4,21 +4,24 @@
     conf .25, top 100, class-aware), fixed-size (num_dets, boxes, scores,
     labels) outputs.  multi_label=True (the default, what the pipeline
     runs): every (anchor, class) pair a candidate; on the card kernel A
-    (csrc/nms.cu `nms_argmax_ml_kernel`), which replaces
-    yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.  multi_label=False:
-    one candidate per anchor, its best class, classes kept apart by a
-    per-class coordinate offset; on the card kernel I (`nms_argmax_kernel`),
-    which replaces `_nms_argmax_kernel`.
+    (csrc/nms.cu `greedy_nms_kernel<false>`, `nms_argmax_ml_kernel` here),
+    which replaces yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.
+    multi_label=False: one candidate per anchor, its best class, classes
+    kept apart by a per-class coordinate offset; on the card kernel I
+    (`nms_argmax_kernel`), which replaces `_nms_argmax_kernel`.
  2. Stage 2, `area_sorted_nms`: conf > .35, priority = box area, class-
     agnostic suppression at IoU .45, keep mask in row order.  On the card
-    this is kernel B (csrc/nms.cu `mask_scan_kernel`), which replaces
-    `_mask_scan_kernel`.
+    this is kernel B (csrc/nms.cu `greedy_nms_kernel<true>`,
+    `mask_scan_kernel` here), which replaces `_mask_scan_kernel`.
 
-Both loops pick the highest live entry each iteration (ties to the lowest
-flat index), so their trip count is the number of boxes kept.  The plain
-versions below run the same loop batched over images with torch ops; the
-wrappers use them only for CPU tensors.  The kernels' source notes give
-their bounds on the H100 and how the design meets them.
+The TPU kernels pick the highest live entry each iteration (ties to the
+lowest flat index), so their trip count is the number of boxes kept.  The
+plain versions below run that loop batched over images with torch ops; the
+wrappers use them only for CPU tensors.  Kernels A and B compute the same
+kept sets as one greedy scan of the candidates above the threshold in
+(score desc, flat index asc) order, sorted in windows and decided in
+chunks (the source note of csrc/nms.cu says why the two agree, and gives
+the bounds on the H100).
 """
 from __future__ import annotations
 
@@ -31,6 +34,35 @@ from yolov8_vit_tpu_torch.ops.boxes import box_area
 
 _KILLED = -1e9
 _BIG = 2 ** 30
+
+# kernels A and B sort the candidates above the threshold in windows of up
+# to NMS_WINDOW keys and decide them in chunks growing to NMS_CHUNK (powers
+# of two, 32 to 4096 and 32 to 1024; csrc/nms.cu).  Read at each launch, so
+# tests set smaller ones to cross window and chunk boundaries at small
+# shapes.
+NMS_WINDOW = 1024
+NMS_CHUNK = 64
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "launch_nms_argmax_ml": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
+    + [_P] * 6,
+    "launch_nms_argmax": [_P] * 4 + [_I, _I, _F, _F, _I] + [_P] * 5,
+    "launch_mask_scan": [_P] * 4 + [_I, _I, _F, _F, _I, _I] + [_P] * 4,
+}
+_launchers: dict = {}
+
+
+def _launcher(name: str):
+    """The nms library's C function `name`, its argtypes set once a
+    process."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = getattr(_build.lib("nms"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _launchers[name] = fn
+    return fn
 
 
 def _iou_vs(boxes: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -67,6 +99,7 @@ def nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
         if not bool(active.any()):
             break
         i_sel = torch.where(scs == m[:, None], flat, _BIG).amin(dim=1)
+        i_sel = torch.where(active, i_sel, 0)    # a NaN max matches none
         k, a = i_sel // n, i_sel % n
         sel = boxes[rows, a]                                   # (B, 4)
         kill = (_iou_vs(boxes, sel) > iou_threshold) | (cols == a[:, None])
@@ -114,6 +147,7 @@ def nms_argmax_plain(boxes, per_score, per_label, side, iou_threshold,
         if not bool(active.any()):
             break
         i_sel = torch.where(scs == m[:, None], idx, _BIG).amin(dim=1)
+        i_sel = torch.where(active, i_sel, 0)
         sel = boxes[rows, i_sel]                               # (B, 4)
         clab = per_label[rows, i_sel]
         cx1, cy1, cx2, cy2 = ((v + clab * side)[:, None]
@@ -162,33 +196,44 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
         out = nms_argmax_ml_plain(boxes, scores, iou_threshold,
                                   score_threshold, max_output)
     else:
-        if (n * c + 66) * 4 > 232448:
-            raise ValueError(f"{n} anchors x {c} classes exceed the "
-                             f"kernel's shared memory")
-        dev = boxes.device
-        num = torch.empty(b, dtype=torch.int32, device=dev)
-        ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
-        os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
-        ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
-        so = _build.lib("nms")
-        fn = so.launch_nms_argmax_ml
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        rc = fn(boxes.data_ptr(), scores.data_ptr(), b, n, c,
-                iou_threshold, score_threshold, max_output, num.data_ptr(),
-                ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
-                _build.stream_ptr())
-        efficient_nms_scan.launches += 1
-        _build.check(so, rc, "nms_argmax_ml_kernel")
-        out = (num, ob, os_, ol)
+        out = nms_argmax_ml_kernel(boxes, scores, iou_threshold,
+                                   score_threshold, max_output)
     if single:
         out = tuple(o[0] for o in out)
     return out
 
 
 efficient_nms_scan.launches = 0
+
+
+def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
+                         iou_threshold: float, score_threshold: float,
+                         max_output: int):
+    """Kernel A on CUDA tensors: boxes (B, N, 4) and scores (B, N, C) f32
+    contiguous -> the outputs of `nms_argmax_ml_plain`.  Any N * C is
+    taken.  Counted on efficient_nms_scan."""
+    if score_threshold < -1.0:
+        # killed entries hold -1: below it the TPU kernel picks them again
+        raise ValueError(f"kernel A takes score_threshold >= -1; got "
+                         f"{score_threshold}")
+    b, n, c = scores.shape
+    if n * c >= 2 ** 31:
+        raise ValueError(f"{n} anchors x {c} classes overflow the kernel's "
+                         f"32-bit flat index")
+    dev = boxes.device
+    num = torch.empty(b, dtype=torch.int32, device=dev)
+    ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
+    os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
+    ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
+    pool = torch.empty(b, n * c, dtype=torch.int64, device=dev)
+    rc = _launcher("launch_nms_argmax_ml")(
+        boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
+        score_threshold, max_output, NMS_WINDOW, NMS_CHUNK, pool.data_ptr(),
+        num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
+        _build.stream_ptr())
+    efficient_nms_scan.launches += 1
+    _build.check(_build.lib("nms"), rc, "nms_argmax_ml_kernel (kernel A)")
+    return num, ob, os_, ol
 
 
 def nms_single_label(boxes, scores, iou_threshold, score_threshold,
@@ -218,18 +263,13 @@ def nms_single_label(boxes, scores, iou_threshold, score_threshold,
         os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
         ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
         per_label, side = per_label.contiguous(), side.contiguous()
-        so = _build.lib("nms")
-        fn = so.launch_nms_argmax
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int] + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        rc = fn(boxes.data_ptr(), per_score.data_ptr(), per_label.data_ptr(),
-                side.data_ptr(), b, n, iou_threshold, score_threshold,
-                max_output, num.data_ptr(), ob.data_ptr(), os_.data_ptr(),
-                ol.data_ptr(), _build.stream_ptr())
+        rc = _launcher("launch_nms_argmax")(
+            boxes.data_ptr(), per_score.data_ptr(), per_label.data_ptr(),
+            side.data_ptr(), b, n, iou_threshold, score_threshold,
+            max_output, num.data_ptr(), ob.data_ptr(), os_.data_ptr(),
+            ol.data_ptr(), _build.stream_ptr())
         nms_single_label.launches += 1
-        _build.check(so, rc, "nms_argmax_kernel")
+        _build.check(_build.lib("nms"), rc, "nms_argmax_kernel")
         out = (num, ob, os_, ol)
     if single:
         out = tuple(o[0] for o in out)
@@ -255,10 +295,47 @@ def mask_scan_plain(boxes: torch.Tensor, pri: torch.Tensor,
         if not bool(active.any()):
             break
         i_sel = torch.where(pr == m[:, None], idx, _BIG).amin(dim=1)
+        i_sel = torch.where(active, i_sel, 0)
         kill = ((_iou_vs(boxes, boxes[rows, i_sel]) > iou_threshold)
                 | (idx == i_sel[:, None])) & active[:, None]
         pr = torch.where(kill, _KILLED, pr)
         keep[rows, i_sel] |= active
+    return keep
+
+
+def mask_priority(boxes: torch.Tensor, scores: torch.Tensor,
+                  valid: torch.Tensor,
+                  score_threshold: float) -> torch.Tensor:
+    """Kernel B's priority of each row, f32: the box area (in the boxes'
+    dtype, as JAX takes it) where the row is valid with score >
+    score_threshold, else -1e9."""
+    valid = valid & (scores > score_threshold)
+    return torch.where(valid, box_area(boxes).to(torch.float32),
+                       _KILLED).contiguous()
+
+
+def mask_scan_kernel(boxes: torch.Tensor, scores, valid,
+                     iou_threshold: float, score_threshold: float, *,
+                     pri=None) -> torch.Tensor:
+    """Kernel B on CUDA tensors: boxes (B, T, 4) f32 contiguous, and either
+    scores (B, T) f32 and valid (B, T) bool, whose priorities the kernel
+    makes as `mask_priority` does for f32 inputs, or `pri` (B, T) f32 made
+    by the caller (scores and valid None) -> keep (B, T) bool.  Any T is
+    taken.  Counted on area_sorted_nms."""
+    b, t = boxes.shape[:2]
+    dev = boxes.device
+    keep = torch.empty(b, t, dtype=torch.bool, device=dev)
+    pool = torch.empty(b, t, dtype=torch.int64, device=dev)
+    kept = torch.empty(b, t, 4, dtype=torch.float32, device=dev)
+    ptrs = (None, None, pri.data_ptr()) if pri is not None else (
+        scores.data_ptr(), valid.data_ptr(), None)
+    rc = _launcher("launch_mask_scan")(
+        boxes.data_ptr(), *ptrs, b, t, iou_threshold, score_threshold,
+        NMS_WINDOW, NMS_CHUNK, pool.data_ptr(), kept.data_ptr(),
+        keep.data_ptr(),
+        _build.stream_ptr())
+    area_sorted_nms.launches += 1
+    _build.check(_build.lib("nms"), rc, "mask_scan_kernel (kernel B)")
     return keep
 
 
@@ -270,29 +347,27 @@ def area_sorted_nms(boxes: torch.Tensor, scores: torch.Tensor,
     (B, T, 4) boxes.  Rows that are valid with score > score_threshold
     compete by area, descending, ties to the lowest row; suppression is
     class-agnostic at IoU > iou_threshold.
-    CUDA tensors launch kernel B; CPU tensors run the plain version."""
+    CUDA tensors launch kernel B (f32 boxes and scores: the kernel makes
+    the priorities; other dtypes: `mask_priority` makes them first); CPU
+    tensors run the plain version."""
     single = boxes.dim() == 2
     if single:
         boxes, scores, valid = boxes[None], scores[None], valid[None]
-    valid = valid & (scores > score_threshold)
-    pri = torch.where(valid, box_area(boxes).to(torch.float32),
-                      _KILLED).contiguous()
-    boxes = boxes.to(torch.float32).contiguous()
-    b, t = pri.shape
-    if _build.on_cpu(boxes, pri):
-        keep = mask_scan_plain(boxes, pri, iou_threshold)
+    valid = valid.to(torch.bool)
+    f32 = torch.float32
+    if _build.on_cpu(boxes, scores, valid):
+        pri = mask_priority(boxes, scores, valid, score_threshold)
+        keep = mask_scan_plain(boxes.to(f32).contiguous(), pri,
+                               iou_threshold)
+    elif boxes.dtype == f32 and scores.dtype == f32:
+        keep = mask_scan_kernel(boxes.contiguous(), scores.contiguous(),
+                                valid.contiguous(), iou_threshold,
+                                score_threshold)
     else:
-        keep = torch.empty(b, t, dtype=torch.bool, device=boxes.device)
-        so = _build.lib("nms")
-        fn = so.launch_mask_scan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        rc = fn(boxes.data_ptr(), pri.data_ptr(), b, t, iou_threshold,
-                keep.data_ptr(), _build.stream_ptr())
-        area_sorted_nms.launches += 1
-        _build.check(so, rc, "mask_scan_kernel")
+        keep = mask_scan_kernel(
+            boxes.to(f32).contiguous(), None, None, iou_threshold,
+            score_threshold,
+            pri=mask_priority(boxes, scores, valid, score_threshold))
     return keep[0] if single else keep
 
 

@@ -21,10 +21,17 @@ yolov8_vit_tpu/ops/quant.py:
                          the residual given apart, replaces
                          `_quant_mlp_kernel`.
 
-The kernels read each int8 weight transposed to (out, in).  A caller that
-runs many forwards makes that copy once and passes it (`w_t`, `w1_t`,
-`w2_t`; models/vit.py derives them per load); without it a wrapper
-transposes per call.
+The kernels read each int8 weight transposed to (out, in), zero-padded
+to multiples of 16 (`padded_t`).  A caller that runs many forwards makes
+that copy once and passes it (`w_t`, `w1_t`, `w2_t`; models/vit.py derives
+them per load); without it a wrapper makes it per call.  The int8 GEMM
+takes widths that are multiples of 16 (TMA's 16-byte rows), so the
+wrappers zero-pad every other width: the activations' columns, the
+weights, scales and biases, and slice the output.  Zero columns add
+nothing to an int8 product and leave every row's amax as it was, a padded
+fc1 column is gelu(0) = 0, and the LayerNorm's statistics stay over the
+real width: the padded forms compute what JAX's kernels compute at any
+width.
 """
 from __future__ import annotations
 
@@ -41,6 +48,21 @@ MLP_AND_ATTN_SUFFIXES = MLP_SUFFIXES + ("qkv", "proj")
 
 # activation dtype codes of the kernels' C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def round_up16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x (..., w) with zero columns appended up to `width` (x itself where
+    w == width)."""
+    w = x.shape[-1]
+    if w == width:
+        return x
+    out = x.new_zeros(*x.shape[:-1], width)
+    out[..., :w] = x
+    return out
 
 
 def _div127(amax: torch.Tensor) -> torch.Tensor:
@@ -131,54 +153,74 @@ def quant_mlp_ln_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
     return (xf + y).to(x.dtype)
 
 
-def transposed_i8(w_i8: torch.Tensor, w_t: torch.Tensor | None = None):
+def padded_t(w_i8: torch.Tensor) -> torch.Tensor:
     """The (out, in) contiguous copy of an int8 (in, out) weight that the
-    kernels read: `w_t` where the caller made it, else a copy made now."""
+    kernels read, both widths zero-padded to multiples of 16."""
+    fin, fout = w_i8.shape
+    return pad_cols(pad_cols(w_i8.t(), round_up16(fin)).t(),
+                    round_up16(fout)).t().contiguous()
+
+
+def transposed_i8(w_i8: torch.Tensor, w_t: torch.Tensor | None = None):
+    """`padded_t(w_i8)`: `w_t` where the caller made it (padded, or the
+    plain transpose, padded here), else a copy made now."""
     if w_t is None:
-        return w_i8.t().contiguous()
-    if w_t.shape != w_i8.shape[::-1] or not w_t.is_contiguous() \
-            or w_t.dtype != torch.int8:
+        return padded_t(w_i8)
+    fin, fout = w_i8.shape
+    if not w_t.is_contiguous() or w_t.dtype != torch.int8 \
+            or w_t.shape not in ((fout, fin),
+                                 (round_up16(fout), round_up16(fin))):
         raise ValueError(f"transposed weight {tuple(w_t.shape)} "
                          f"{w_t.dtype} does not fit {tuple(w_i8.shape)}")
+    if w_t.shape != (round_up16(fout), round_up16(fin)):
+        return padded_t(w_t.t())
     return w_t
 
 
 def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps,
                 out=None):
     """The launch chain of kernels C (ln = (scale, bias)) and H (ln =
-    None) on (M, D) rows; w1t (H, D) and w2t (D, H) transposed int8.  The
-    rows go into `out` where given (an (M, D) contiguous tensor of xm's
-    dtype and device), else into a new tensor."""
+    None) on (M, D) rows; w1t (Hp, Dp) and w2t (Dp, Hp) from
+    `transposed_i8`.  Returns the library, the launch's return code and
+    the (M, Dp) rows of the result (padded past D where D % 16).  The rows
+    go into `out` where given (an (M, D) contiguous tensor of xm's dtype
+    and device, with D % 16 == 0), else into a new tensor."""
     m, d = xm.shape
-    hid = w1t.shape[0]
-    if xm.dtype not in DTYPE_CODES or d % 16 or hid % 16:
-        raise ValueError(f"{what} takes f32/bf16 rows with D, H multiples "
-                         f"of 16; got {xm.dtype}, D={d}, H={hid}")
+    hp, dp = w1t.shape
+    if xm.dtype not in DTYPE_CODES or dp != round_up16(d):
+        raise ValueError(f"{what} takes f32/bf16 rows and weights padded "
+                         f"to multiples of 16 (transposed_i8); got "
+                         f"{xm.dtype}, D={d}, weights {tuple(w1t.shape)}")
+    xp = pad_cols(xm, dp)
+    rp = xp if res is xm else pad_cols(res, dp)
+    s1, b1 = pad_cols(s1, hp), pad_cols(b1, hp)
+    s2, b2 = pad_cols(s2, dp), pad_cols(b2, dp)
     if out is None:
-        out = torch.empty_like(xm)
-    elif out.shape != xm.shape or out.dtype != xm.dtype \
+        out = torch.empty_like(xp)
+    elif out.shape != xm.shape or out.dtype != xm.dtype or dp != d \
             or out.device != xm.device or not out.is_contiguous():
         raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} on "
                          f"{out.device} does not fit rows {tuple(xm.shape)} "
                          f"{xm.dtype} on {xm.device}")
     dev = xm.device
     f32 = torch.float32
-    hq = torch.empty(m, d, dtype=torch.int8, device=dev)
+    hq = torch.empty(m, dp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
     amax = torch.empty(m, dtype=torch.int32, device=dev)   # zeroed on card
-    aq = torch.empty(m, hid, dtype=torch.int8, device=dev)
+    aq = torch.empty(m, hp, dtype=torch.int8, device=dev)
     sa = torch.empty(m, dtype=f32, device=dev)
     so = _build.lib("quant_mlp")
     fn = so.launch_quant_mlp
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                   + [ctypes.c_void_p] * 13)
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                       + [ctypes.c_void_p] * 13)
+        fn.restype = ctypes.c_int
     ln_p = (None, None) if ln is None else (ln[0].data_ptr(),
                                             ln[1].data_ptr())
-    rc = fn(xm.data_ptr(), res.data_ptr(), DTYPE_CODES[xm.dtype], m, d, hid,
-            ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(), s1.data_ptr(),
+    rc = fn(xp.data_ptr(), rp.data_ptr(), DTYPE_CODES[xm.dtype], m, d, dp,
+            hp, ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(), s1.data_ptr(),
             b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
             hq.data_ptr(), sx.data_ptr(), amax.data_ptr(), aq.data_ptr(),
             sa.data_ptr(), out.data_ptr(), _build.stream_ptr())
@@ -207,7 +249,7 @@ def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
         vecs[3], transposed_i8(w2_i8, w2_t), vecs[4], vecs[5], ln_eps)
     quant_mlp_ln_fused.launches += 1
     _build.check(so, rc, "quant_mlp_ln (kernel C)")
-    return out.reshape(*lead, d)
+    return out[:, :d].reshape(*lead, d)
 
 
 quant_mlp_ln_fused.launches = 0
@@ -246,7 +288,7 @@ def quant_mlp_fused(h: torch.Tensor, residual: torch.Tensor, w1_i8, s1, b1,
         vecs[1], transposed_i8(w2_i8, w2_t), vecs[2], vecs[3], 0.0)
     quant_mlp_fused.launches += 1
     _build.check(so, rc, "quant_mlp (kernel H)")
-    return out.reshape(*lead, d)
+    return out[:, :d].reshape(*lead, d)
 
 
 quant_mlp_fused.launches = 0
@@ -269,8 +311,7 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
     optional SiLU in f32, one cast to x's dtype.
 
     w_t: the (N, K) copy of w (see the module note).  CUDA tensors launch
-    kernel G (K a multiple of 16, N of 8); CPU tensors run the plain
-    version."""
+    kernel G; CPU tensors run the plain version."""
     *lead, k = x.shape
     n = w_i8.shape[1]
     xm = x.reshape(-1, k).contiguous()
@@ -278,27 +319,30 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
     sw, b = w_scale.to(f32).contiguous(), bias.to(f32).contiguous()
     if _build.on_cpu(xm, w_i8, sw, b):
         return quant_dense_plain(xm, w_i8, sw, b, silu).reshape(*lead, n)
-    if x.dtype not in DTYPE_CODES or k % 16 or n % 8:
-        raise ValueError(f"kernel G takes f32/bf16 rows with K a multiple "
-                         f"of 16 and N of 8; got {x.dtype}, K={k}, N={n}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"kernel G takes f32/bf16 rows; got {x.dtype}")
     m = xm.shape[0]
     dev = x.device
     wt = transposed_i8(w_i8, w_t)
-    xq = torch.empty(m, k, dtype=torch.int8, device=dev)
+    np_, kp = wt.shape
+    xm = pad_cols(xm, kp)
+    sw, b = pad_cols(sw, np_), pad_cols(b, np_)
+    xq = torch.empty(m, kp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
-    out = torch.empty(m, n, dtype=x.dtype, device=dev)
+    out = torch.empty(m, np_, dtype=x.dtype, device=dev)
     so = _build.lib("quant_mlp")
     fn = so.launch_quant_dense
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
-    rc = fn(xm.data_ptr(), DTYPE_CODES[x.dtype], m, k, n, wt.data_ptr(),
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+    rc = fn(xm.data_ptr(), DTYPE_CODES[x.dtype], m, kp, np_, wt.data_ptr(),
             sw.data_ptr(), b.data_ptr(), int(bool(silu)), xq.data_ptr(),
             sx.data_ptr(), out.data_ptr(), _build.stream_ptr())
     quant_dense_fused.launches += 1
     _build.check(so, rc, "quant_dense (kernel G)")
-    return out.reshape(*lead, n)
+    return out[:, :n].reshape(*lead, n)
 
 
 quant_dense_fused.launches = 0
