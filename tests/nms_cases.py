@@ -107,3 +107,72 @@ def b_grid(t, seed):
     sc = rng.uniform(0.3, 1.0, t).astype(np.float32)
     valid = rng.random(t) > 0.05
     return bx, sc, valid
+
+
+def shifted_iou(later, l_later, earlier, l_earlier, side):
+    """Kernel I's pair arithmetic (the TPU kernel `_nms_argmax_kernel`'s),
+    f32: IoU of later boxes (..., 4) with labels l_later against one earlier
+    box with label l_earlier, both shifted by label * side, the later boxes'
+    areas on the shifted coordinates and the earlier box's on its
+    coordinates as given.  Not symmetric: the shifted coordinates round."""
+    f = np.float32
+    side = f(side)
+    xo = later.astype(f) + (np.asarray(l_later, f) * side)[..., None]
+    e = np.asarray(earlier, f)
+    eo = e + f(l_earlier) * side
+    area = (np.maximum(xo[..., 2] - xo[..., 0], f(0))
+            * np.maximum(xo[..., 3] - xo[..., 1], f(0)))
+    c_area = np.maximum(e[2] - e[0], f(0)) * np.maximum(e[3] - e[1], f(0))
+    iw = np.maximum(np.minimum(xo[..., 2], eo[2])
+                    - np.maximum(xo[..., 0], eo[0]), f(0))
+    ih = np.maximum(np.minimum(xo[..., 3], eo[3])
+                    - np.maximum(xo[..., 1], eo[1]), f(0))
+    inter = iw * ih
+    return inter / np.maximum(area + c_area - inter, f(1e-9))
+
+
+def straddle_pairs(side, label, count, seed=0, thr=0.65, y0=50.0):
+    """`count` pairs of boxes (a, b) whose IoU in the two directions
+    straddles thr under kernel I's arithmetic at class `label` and band
+    `side`: shifted_iou(b, a) > thr != shifted_iou(a, b) > thr."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        x, y = rng.uniform(50, 500), rng.uniform(y0, y0 + 450)
+        w, h = rng.uniform(20, 60, 2)
+        a = np.array([x, y, x + w, y + h], f)
+        dx = rng.uniform(0, 0.25) * w
+        b = np.array([x + dx, y, x + dx + w * rng.uniform(0.9, 1.1), y + h],
+                     f)
+        ba = shifted_iou(b[None], [label], a, label, side)[0]
+        ab = shifted_iou(a[None], [label], b, label, side)[0]
+        if (ba > f(thr)) != (ab > f(thr)):
+            out.append((a, b))
+    return out
+
+
+def i_cases():
+    """name -> (boxes, scores) for kernel I (single-label: each anchor's
+    best class competes) and its rehearsal, at the stage-1 thresholds."""
+    out = {"dense": dense_scene(2048, 0, 1500),
+           "dense_ties": dense_scene(2048, 1, 1500, ties=True),
+           "crowded": crowded_scene(2000, 2)}
+    # a box at 1e5 makes the class band side 2 (1e5 + 1), so that label 4
+    # shifts by about 8e5, where the f32 grid is 1/16: pairs of label 4
+    # whose IoU straddles .65 by direction, each as (earlier, later) and
+    # (later, earlier), below the dense scene
+    b, s = dense_scene(600, 5, 300)
+    b[0], s[0] = [1e5 - 10, 0, 1e5, 10], 0.1
+    side = np.float32(2.0) * (np.float32(1e5) + np.float32(1.0))
+    for p, (a, c) in enumerate(straddle_pairs(side, 4, 6, y0=1050.0)):
+        for q, box in enumerate((a, c) if p % 2 else (c, a)):
+            i = 10 + 2 * p + q
+            b[i] = box
+            s[i] = 0.0
+            s[i, 4] = 0.9 - 0.05 * q
+    out["straddle"] = (b, s)
+    b, s = dense_scene(300, 7, 100)
+    s[5, 1] = np.nan
+    out["nan"] = (b, s)
+    return out

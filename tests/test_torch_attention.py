@@ -243,3 +243,74 @@ def test_kernel_sdpa_arithmetic_meets_float_bf16_tol(form):
                                                   v.float())
     assert got.dtype == ref.dtype == torch.bfloat16
     _meets_float_bf16_tol(got, ref, f32_ref)
+
+
+# head dims the SDPA core does not run (8, 48, 80: zero-padded to 16, 64,
+# 128) and its largest, 128; two heads each
+_PAD_HEAD_DIMS = [8, 48, 80, 128]
+
+
+@pytest.mark.parametrize("hd", _PAD_HEAD_DIMS)
+def test_kernel_e_head_padding_matches_unpadded_and_jax(hd):
+    """Kernel E's padded operands (`_head_padded_float`: each head's q, k,
+    v columns and proj rows zero-padded to the core's head dim) through
+    the plain arithmetic with the real head dim's scale give the unpadded
+    plain result and JAX's `_attn_block_kernel` in interpret mode."""
+    heads, b, t = 2, 2, 17
+    d = heads * hd
+    x, lns, lnb, wq, bq, wp, bp = _block_inputs(
+        np.random.default_rng(hd), b, t, d)
+    hdp = attention._padded_head_dim(torch.float32, d, heads, "E")
+    assert hdp == {8: 16, 48: 64, 80: 128, 128: 128}[hd]
+    wqp, bqp, wpp = attention._head_padded_float(_t(wq), _t(bq), _t(wp),
+                                                 heads, hdp)
+    assert wqp.shape == (d, 3 * heads * hdp) and wpp.shape == (heads * hdp,
+                                                               d)
+    xx = _t(x).reshape(-1, d)
+    h = attention.layernorm_f32(xx, _t(lns), _t(lnb), 1e-6)
+    qkv = (h @ wqp + bqp).reshape(b, t, 3, heads, hdp)
+    assert bool((qkv[..., hd:] == 0).all())
+    q, k, v = qkv.unbind(2)
+    s = torch.einsum("bqhc,bkhc->bhqk", q * hd ** -0.5, k)
+    o = attention._softmax_pv(s, v, torch.float32, torch.float32)
+    got = (xx + o.reshape(b * t, heads * hdp) @ wpp + _t(bp)).reshape(b, t, d)
+    plain = attention.fused_attention_block(
+        *map(_t, (x, lns, lnb, wq, bq, wp, bp)), heads=heads)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    ref = np.asarray(jatt.fused_attention_block(
+        *map(jnp.asarray, (x, lns, lnb, wq, bq, wp, bp)), heads=heads,
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hd", _PAD_HEAD_DIMS)
+def test_kernel_f_head_padding_matches_unpadded_and_jax(hd):
+    """Kernel F's padding (q, k and v copied into zero-padded buffers of
+    the core's head dim, the output sliced) through the plain arithmetic
+    with the real head dim's scale gives the unpadded plain result and
+    JAX's `_attn_kernel` in interpret mode."""
+    rng = np.random.default_rng(hd + 1)
+    b, t, heads = 2, 17, 2
+    q, k, v = (rng.normal(size=(b, t, heads, hd)).astype(np.float32)
+               for _ in range(3))
+    hdp = attention._padded_head_dim(torch.float32, heads * hd, heads, "F")
+    qp, kp, vp = (attention.pad_cols(_t(a), hdp) for a in (q, k, v))
+    s = torch.einsum("bqhc,bkhc->bhqk", qp, kp) * hd ** -0.5
+    got = attention._softmax_pv(s, vp, torch.float32, torch.float32)
+    assert bool((got[..., hd:] == 0).all())
+    got = got[..., :hd]
+    plain = attention.flash_attention(*map(_t, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    ref = np.asarray(jatt.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                          interpret=True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=5e-4, atol=2e-4)
+
+
+def test_head_dims_above_128_refused():
+    """The SDPA core's largest head dim is 128: a CUDA call above it raises
+    before any launch (checked here without a card)."""
+    with pytest.raises(ValueError, match="head dim up to 128"):
+        attention._padded_head_dim(torch.bfloat16, 2 * 136, 2, "kernel E")
+    assert attention._padded_head_dim(torch.bfloat16, 2 * 128, 2, "F") == 128

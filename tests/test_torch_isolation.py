@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of `yolov8_vit_tpu_torch`, and
-not its root scripts (chip_smoke.py, nms_cost.py), imports jax, flax or
+not its root scripts (chip_smoke.py, kernel_cost.py), imports jax, flax or
 the JAX package, or a package the GPU machine lacks (msgpack, ml_dtypes,
 cv2, requests); PIL only inside functions (host decode).  Checked
 statically with `ast`, and by importing every module in a subprocess
@@ -17,7 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "yolov8_vit_tpu", "msgpack",
              "ml_dtypes", "cv2", "optax", "orbax", "requests"}
 
 
-ROOT_SCRIPTS = ("chip_smoke.py", "nms_cost.py")
+ROOT_SCRIPTS = ("chip_smoke.py", "kernel_cost.py")
 
 
 def _port_files():
@@ -69,7 +69,7 @@ def test_import_all_with_jax_poisoned():
         f"sys.path.insert(0, {REPO!r})",
         f"for m in {mods!r}:",
         "    importlib.import_module(m.removesuffix('.__init__'))",
-        "import chip_smoke, nms_cost",
+        "import chip_smoke, kernel_cost",
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r} and sys.modules[m] is not None]",
         "assert not leaked, leaked",

@@ -22,7 +22,7 @@ from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain, quant_mlp_plain,
                                             quant_mlp_ln_plain,
                                             quantize_weight)
 
-from nms_cases import a_cases, b_case, b_grid, crowded_scene
+from nms_cases import a_cases, b_case, b_grid, crowded_scene, i_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -302,6 +302,46 @@ def test_kernel_f_matches_plain(dev, dtype, shape):
            f32_ref=flash_attention_plain(*qkv.float().unbind(2)))
 
 
+# head dims the SDPA core does not run (48, 80: zero-padded to 64, 128) and
+# its largest, 128 (D, E and F take every head dim up to it)
+_PAD_SHAPES = [(2, 65, 96, 2), (2, 130, 160, 2), (3, 129, 256, 2),
+               (2, 785, 384, 3)]
+
+
+@pytest.mark.parametrize("shape", _PAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_d_e_f_at_head_dims_48_80_128(dev, dtype, shape):
+    b, t, d, heads = shape
+    g = _gen(21)
+    ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+          (0.1 * torch.randn(d, generator=g)).to(dev))
+    x = torch.randn(b, t, d, generator=g).to(dev, dtype)
+    args = (x, *ln, *_w(g, d, 3 * d, dev), *_w(g, d, d, dev))
+    _close(ops.fused_attention_block_i8(*args, heads=heads),
+           attn_block_i8_plain(*args, heads=heads), dtype, int8=True)
+    x = (0.05 * torch.randn(b, t, d, generator=g)).to(dev, dtype)
+    w = [(torch.randn(d, n, generator=g) * d ** -0.5).to(dev, dtype)
+         for n in (3 * d, d)]
+    bias = [(0.02 * torch.randn(n, generator=g)).to(dev) for n in (3 * d, d)]
+    args = (x, *ln, w[0], bias[0], w[1], bias[1])
+    _close(ops.fused_attention_block(*args, heads=heads),
+           fused_attention_block_plain(*args, heads=heads), dtype,
+           f32_ref=fused_attention_block_plain(*(a.float() for a in args),
+                                               heads=heads))
+    q, k, v = (torch.randn(b, t, heads, d // heads, generator=g)
+               .to(dev, dtype) for _ in range(3))
+    got = ops.flash_attention(q, k, v)
+    assert got.shape == q.shape
+    _close(got, flash_attention_plain(q, k, v), dtype,
+           f32_ref=flash_attention_plain(q.float(), k.float(), v.float()))
+
+
+def test_head_dim_above_128_raises(dev):
+    q = torch.zeros(1, 8, 2, 136, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim up to 128"):
+        ops.flash_attention(q, q, q)
+
+
 # ---- G-J ---------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(300, 96, 64), (77, 768, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,14 +480,44 @@ def test_kernel_i_matches_plain(dev):
     assert int(got[0][1]) == 0 and int(got[0][0]) > 10
 
 
-@pytest.mark.parametrize("shape", [(2, 48, 80, 16, 32), (1, 34, 30, 32, 64)])
-def test_kernel_j_matches_plain(dev, shape):
-    """bf16 reassociation class: |d| <= 0.05 std(ref) + one bf16 ulp of
-    the output, mean |d| <= 0.005 std(ref) (chip_smoke.py's REGION_TOL
-    states why).  The second shape has ragged tiles (15 x 17 outputs)."""
+def _assert_i(boxes, scores):
+    got = ops.efficient_nms_scan(boxes, scores, multi_label=False)
+    _assert_a(got, nms_argmax_plain(boxes, *single_label_candidates(
+        boxes, scores), 0.65, 0.25, 100))
+    return got
+
+
+@pytest.mark.parametrize("window,chunk", _NMS_SIZES + [(32, 32)])
+@pytest.mark.parametrize("case", ["dense", "dense_ties", "crowded",
+                                  "straddle", "nan"])
+def test_kernel_i_cases_match_plain(dev, monkeypatch, case, window, chunk):
+    """tests/test_torch_nms_order.py's single-label cases (held there
+    against JAX by the rehearsal of this kernel's order: the straddle
+    case's pairs decide by direction), two images a batch."""
+    b, s = (torch.from_numpy(a) for a in i_cases()[case])
+    boxes = torch.stack([b, b + 1.5]).to(dev)
+    scores = torch.stack([s, s.flip(0)]).to(dev)
+    _sizes(monkeypatch, window, chunk)
+    got = _assert_i(boxes, scores)
+    if case == "nan":
+        assert int(got[0].max()) == 0
+
+
+@pytest.mark.parametrize("n", [33600, 134400])
+def test_kernel_i_at_1280_and_past_the_old_cap(dev, n):
+    """33,600 anchors (1280 x 1280) and 134,400 (2560 x 2560, past the old
+    kernel's 58,046-anchor cap), 8 frames; a NaN score in one frame keeps
+    nothing there."""
+    boxes, scores = (t.to(dev) for t in _scene_1280(_gen(22), 8, n, 5, 0.2))
+    scores[3, 17, 2] = float("nan")
+    got = _assert_i(boxes, scores)
+    assert int(got[0][3]) == 0 and int(got[0][0]) == 100
+
+
+def _j_case(dev, shape, seed=11):
     b, h, w, c1, c2 = shape
     c = c2 // 2
-    g = _gen(11)
+    g = _gen(seed)
 
     def conv(kh, cin, cout):
         return {"conv": {
@@ -459,14 +529,62 @@ def test_kernel_j_matches_plain(dev, shape):
               "m0_cv1": conv(3, c, c), "m0_cv2": conv(3, c, c),
               "cv2": conv(1, 3 * c, c2)}
     x = (torch.randn(b, h, w, c1, generator=g) * 0.3).to(dev, torch.bfloat16)
-    got = ops.fused_b1b2(x, params).float()
-    ref = region_b1b2_plain(x, params).float()
+    return x, params
+
+
+def _assert_j(got, ref, shape):
+    b, h, w, _, c2 = shape
     assert got.shape == ref.shape == (b, h // 2, w // 2, c2)
     d = (got - ref).abs()
     std = float(ref.std())
     assert bool((d <= 0.05 * std + 2.0 ** -7 * ref.abs()).all()), \
         (float(d.max()), std)
     assert float(d.mean()) <= 0.005 * std, (float(d.mean()), std)
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 80, 16, 32), (1, 34, 30, 32, 64),
+                                   (2, 100, 76, 16, 32),
+                                   (1, 320, 320, 32, 64),
+                                   (3, 122, 246, 32, 64),
+                                   (2, 66, 90, 48, 96),
+                                   (1, 64, 64, 64, 128),
+                                   (1, 40, 56, 80, 160)])
+def test_kernel_j_matches_plain(dev, shape):
+    """bf16 reassociation class: |d| <= 0.05 std(ref) + one bf16 ulp of
+    the output, mean |d| <= 0.005 std(ref) (chip_smoke.py's REGION_TOL
+    states why).  Both widths of the fused kernel: outputs narrower than
+    one 60-column strip (15 x 17), a ragged last strip (38, 123 columns),
+    odd output rows (61), one frame at the deployed shape; YOLOv8-m's,
+    -l's and -x's widths (48, 96), (64, 128), (80, 160) on the five-launch
+    form; weights prepared once and from the dict, the same result."""
+    x, params = _j_case(dev, shape)
+    prep = ops.prepare_region(params, dev)
+    assert prep.fused == (shape[3:] in ((16, 32), (32, 64)))
+    got = ops.fused_b1b2(x, prep).float()
+    assert torch.equal(got, ops.fused_b1b2(x, params).float())
+    _assert_j(got, region_b1b2_plain(x, params).float(), shape)
+
+
+def test_kernel_j_silu_table_matches_plain(dev):
+    """J's SiLU epilogue on every finite bf16 value against the plain
+    `silu_bf16` on the card, bit for bit: the five-launch form's exact
+    logistic everywhere; the fused kernel's special-function logistic
+    wherever 1 + e^-y <= 2^126 (y > -87.34), below which __fdividef
+    returns 0 for a logistic under 2^-126, so that SiLU is -0 where the
+    plain version is under 2^-119 in magnitude."""
+    from yolov8_vit_tpu_torch.ops import fused_region as fr
+    fast, exact = fr.silu_table(dev)
+    y = torch.arange(65536, dtype=torch.int32).to(torch.int16) \
+        .view(torch.bfloat16).to(dev)
+    fin = torch.isfinite(y.float())
+    plain = fr.silu_bf16(y.float().reshape(-1, 1, 1),
+                         torch.zeros(65536, device=dev)).reshape(-1)
+    bits = [t.view(torch.int16) for t in (fast, exact, plain)]
+    assert bool((bits[1] == bits[2])[fin].all())
+    flush = y.float() <= -87.34
+    assert bool((bits[0] == bits[2])[fin & ~flush].all())
+    d = (fast.float() - plain.float()).abs()[fin & flush]
+    assert float(d.max()) < 2.0 ** -119
 
 
 # ---- C, D, G, H at ViT-B widths on the int8 wgmma GEMM ------------------------

@@ -1,7 +1,8 @@
-"""The order that kernels A and B (yolov8_vit_tpu_torch/csrc/nms.cu) decide
-in, rehearsed in numpy / torch on the CPU and held bit for bit against the
-JAX package's `efficient_nms_scan` and `area_sorted_nms` (Pallas kernels
-in interpret mode) and against the port's plain versions.
+"""The order that kernels A, B and I (yolov8_vit_tpu_torch/csrc/nms.cu)
+decide in, rehearsed in numpy / torch on the CPU and held bit for bit
+against the JAX package's `efficient_nms_scan` (multi-label and
+single-label) and `area_sorted_nms` (Pallas kernels in interpret mode)
+and against the port's plain versions.
 
 The rehearsal follows the kernels step by step: every entry above the
 threshold becomes a 64-bit key (the score's order bits inverted, above its
@@ -21,7 +22,8 @@ import jax.numpy as jnp
 
 from yolov8_vit_tpu.ops.nms import area_sorted_nms as j_area_nms
 from yolov8_vit_tpu.ops.nms import efficient_nms_scan as j_nms
-from nms_cases import a_cases, b_case, crowded_scene, dense_scene
+from nms_cases import (a_cases, b_case, crowded_scene, dense_scene, i_cases,
+                        shifted_iou)
 from test_nms_scan import _dense_scene
 
 from yolov8_vit_tpu_torch.ops import nms
@@ -68,10 +70,19 @@ def _over(x: torch.Tensor, c: torch.Tensor, thr: float) -> np.ndarray:
 
 
 def rehearse(boxes, scores, iou_t, score_t, max_out, window, chunk,
-             class_aware=True, keep_mask=False):
+             class_aware=True, over_fn=None):
     """One image.  boxes (n, 4), scores (n, c) f32 (B: c = 1, scores the
-    priorities).  Returns the kept flat indices in decision order."""
+    priorities; I: c = 1, each anchor's best score).  over_fn(later,
+    earlier): whether the earlier kept flat index suppresses each of the
+    later flat indices (default: IoU above iou_t, of one class where
+    class_aware).  Returns the kept flat indices in decision order."""
     n, c = scores.shape
+    bx = torch.from_numpy(boxes)
+    if over_fn is None:
+        def over_fn(later, earlier):
+            same = (later // n == earlier // n) if class_aware else True
+            return same & _over(bx[torch.from_numpy(later % n)],
+                                bx[earlier % n], iou_t)
     flat_scores = scores.T.reshape(-1)               # flat = class * n + a
     if np.isnan(flat_scores).any():
         return []
@@ -79,7 +90,6 @@ def rehearse(boxes, scores, iou_t, score_t, max_out, window, chunk,
     # the compaction order is arbitrary: take it reversed
     pool = ((_score_key(flat_scores[idx]) << U64(32))
             | idx.astype(U64))[::-1].copy()
-    bx = torch.from_numpy(boxes)
     kept: list[int] = []
     lo, remaining, first = U64(0), len(pool), True
     wcap, size = min(window, FIRST_WINDOW), min(chunk, FIRST_CHUNK)
@@ -90,11 +100,9 @@ def rehearse(boxes, scores, iou_t, score_t, max_out, window, chunk,
             # unprocessed keys a kept box suppresses (to ~0)
             live = np.nonzero((pool >= lo) & (pool != ~U64(0)))[0]
             f = (pool[live] & U64(0xffffffff)).astype(np.int64)
-            lb = bx[torch.from_numpy(f % n)]
             drop = np.zeros(len(live), bool)
             for g in kept:
-                same = (f // n == g // n) if class_aware else True
-                drop |= same & _over(lb, bx[g % n], iou_t)
+                drop |= over_fn(f, g)
             pool[live[drop]] = ~U64(0)
             remaining -= int(drop.sum())
             if remaining == 0:
@@ -116,12 +124,9 @@ def rehearse(boxes, scores, iou_t, score_t, max_out, window, chunk,
         while c0 < len(win) and len(kept) < max_out:
             flat = (win[c0:c0 + size] & U64(0xffffffff)).astype(np.int64)
             c0, size = c0 + len(flat), min(chunk, 2 * size)
-            cls, a = flat // n, flat % n
-            cb = bx[torch.from_numpy(a)]
             removed = np.zeros(len(flat), bool)
             for f in kept:                        # the boxes kept so far
-                same = (cls == f // n) if class_aware else True
-                removed |= same & _over(cb, bx[f % n], iou_t)
+                removed |= over_fn(flat, f)
             for i in range(len(flat)):
                 if removed[i]:
                     continue
@@ -129,8 +134,7 @@ def rehearse(boxes, scores, iou_t, score_t, max_out, window, chunk,
                 if len(kept) == max_out:
                     break
                 later = np.arange(len(flat)) > i
-                same = (cls == cls[i]) if class_aware else True
-                removed |= later & same & _over(cb, cb[i], iou_t)
+                removed |= later & over_fn(flat, flat[i])
         remaining -= len(win)
         last_window = len(win)
         lo = win[-1] + U64(1)
@@ -283,3 +287,96 @@ def test_select_cut_bounds_a_window():
             seen.extend(win.tolist())
             lo = win[-1] + U64(1)
         assert seen == sorted(pool.tolist())
+
+
+# ---- kernel I: the single-label form -----------------------------------------
+def _single_label(boxes, scores):
+    """`single_label_candidates` in numpy, f32: each anchor's best score,
+    its label (the first maximum), the class-band side."""
+    per_score = scores.max(-1)
+    per_label = scores.argmax(-1).astype(np.float32)
+    side = np.float32(2.0) * (np.abs(boxes).max() + np.float32(1.0))
+    return per_score, per_label, side
+
+
+def rehearse_i(boxes, scores, window, chunk, iou_t=0.65, score_t=0.25,
+               max_out=100, direction="later, earlier"):
+    """Kernel I's outputs for one image, from the rehearsal: one key an
+    anchor, every pair decided by `shifted_iou` in the direction the
+    kernel takes it (the later candidate against the earlier kept one);
+    direction "earlier, later" swaps the two, to show a case tells them
+    apart."""
+    per_score, per_label, side = _single_label(boxes, scores)
+
+    def over(later, earlier):
+        if direction == "later, earlier":
+            iou = shifted_iou(boxes[later], per_label[later], boxes[earlier],
+                              per_label[earlier], side)
+        else:
+            iou = np.array([shifted_iou(boxes[earlier][None],
+                                        [per_label[earlier]], boxes[j],
+                                        per_label[j], side)[0]
+                            for j in np.atleast_1d(later)])
+        return iou > np.float32(iou_t)
+
+    kept = rehearse(boxes, per_score[:, None], iou_t, score_t, max_out,
+                    window, chunk, over_fn=over)
+    ob = np.zeros((max_out, 4), np.float32)
+    os_ = np.zeros(max_out, np.float32)
+    ol = np.full(max_out, -1, np.int32)
+    for r, a in enumerate(kept):
+        ob[r], os_[r], ol[r] = boxes[a], per_score[a], per_label[a]
+    return np.int32(len(kept)), ob, os_, ol
+
+
+@pytest.mark.parametrize("window,chunk", _SIZES + [(32, 8)])
+@pytest.mark.parametrize("case", ["dense", "dense_ties", "crowded",
+                                  "straddle", "nan"])
+def test_i_order_vs_jax(case, window, chunk):
+    """Kernel I's ordered scan, rehearsed, against JAX's single-label
+    Pallas kernel in interpret mode and the port's plain version, bit for
+    bit, at the kernel's sizes and at windows and chunks small enough to
+    cross every boundary."""
+    b, s = i_cases()[case]
+    got = rehearse_i(b, s, window, chunk)
+    _assert_a(got, j_nms(jnp.asarray(b), jnp.asarray(s), multi_label=False,
+                         interpret=True))
+    _assert_a(got, nms.efficient_nms_scan(torch.from_numpy(b),
+                                          torch.from_numpy(s),
+                                          multi_label=False))
+    if case == "nan":
+        assert int(got[0]) == 0
+
+
+def test_i_straddling_pairs_decide_by_direction():
+    """The planted label-4 pairs of the "straddle" case: each pair's IoU
+    is above .65 in one direction and not in the other (the later box's
+    area is taken on shifted coordinates, the earlier one's as given), and
+    the rehearsal in the kernel's direction matches JAX where the swapped
+    direction does not."""
+    b, s = i_cases()["straddle"]
+    per_score, per_label, side = _single_label(b, s)
+    assert side == np.float32(2 * (1e5 + 1))
+    for p in range(6):
+        i, j = 10 + 2 * p, 11 + 2 * p          # i scored above j
+        assert per_label[i] == per_label[j] == 4 and per_score[i] > \
+            per_score[j]
+        later = shifted_iou(b[j][None], [4], b[i], 4, side)[0]
+        swapped = shifted_iou(b[i][None], [4], b[j], 4, side)[0]
+        assert (later > np.float32(0.65)) != (swapped > np.float32(0.65))
+    ref = j_nms(jnp.asarray(b), jnp.asarray(s), multi_label=False,
+                interpret=True)
+    _assert_a(rehearse_i(b, s, 64, 32), ref)
+    wrong = rehearse_i(b, s, 64, 32, direction="earlier, later")
+    assert int(wrong[0]) != int(ref[0]) or not np.array_equal(
+        wrong[1], np.asarray(ref[1]))
+
+
+def test_i_past_the_old_anchor_cap():
+    """134,400 anchors (a 2560 x 2560 input), past the old kernel's
+    58,046-anchor shared-memory cap: the rehearsal at the kernel's sizes
+    against the port's plain version."""
+    b, s = dense_scene(134400, 8, 6000)
+    ref = nms.efficient_nms_scan(torch.from_numpy(b), torch.from_numpy(s),
+                                 multi_label=False)
+    _assert_a(rehearse_i(b, s, nms.NMS_WINDOW, nms.NMS_CHUNK), ref)

@@ -119,44 +119,48 @@ extern "C" int launch_attn_block_i8(
 
 namespace {
 
+// dh = heads x the head dim the SDPA core runs (as D's): the width of q,
+// k, v and the heads' output, and the proj GEMM's depth.
 template <typename T>
-int run_float(const void* x, int dtype, int nb, int t, int d, int heads,
-              int t_real, float scale, const float* ln_s, const float* ln_b,
-              float eps, const void* wq, const float* bq, const void* wp,
-              const float* bp, void* h, void* qkv, void* heads_out,
-              void* out, cudaStream_t st) {
+int run_float(const void* x, int dtype, int nb, int t, int d, int dh,
+              int heads, int t_real, float scale, const float* ln_s,
+              const float* ln_b, float eps, const void* wq, const float* bq,
+              const void* wp, const float* bp, void* h, void* qkv,
+              void* heads_out, void* out, cudaStream_t st) {
   const int m = nb * t;
   int e = ln_rows<T>(x, m, d, ln_s, ln_b, eps, h, st);
   if (e) return e;
-  e = gemm_float<T, kFEpiBias>(h, wq, m, 3 * d, d, bq, nullptr, qkv, st);
+  e = gemm_float<T, kFEpiBias>(h, wq, m, 3 * dh, d, bq, nullptr, qkv, st);
   if (e) return e;
-  e = launch_sdpa(packed_qkv(qkv, heads_out, dtype, t, d, heads, t_real,
-                             scale), dtype, nb, d / heads, st);
+  e = launch_sdpa(packed_qkv(qkv, heads_out, dtype, t, dh, heads, t_real,
+                             scale), dtype, nb, dh / heads, st);
   if (e) return e;
-  return gemm_float<T, kFEpiResidual>(heads_out, wp, m, d, d, bp, x, out,
+  return gemm_float<T, kFEpiResidual>(heads_out, wp, m, d, dh, bp, x, out,
                                       st);
 }
 
 }  // namespace
 
-// Kernel E.  wq (d, 3d) and wp (d, d) in the JAX (in, out) layout and the
-// activation dtype; biases and LN params f32; h (m, d), qkv (m, 3d) and
-// heads_out (m, d) scratch in the activation dtype.  `scale` is hd^-0.5
-// already rounded to the activation dtype.
+// Kernel E.  wq (d, 3 dh) and wp (dh, d) in the JAX (in, out) layout and
+// the activation dtype (each head's q, k, v columns and proj rows padded
+// with zeros to dh / heads); biases and LN params f32; h (m, d), qkv (m,
+// 3 dh) and heads_out (m, dh) scratch in the activation dtype.  `scale`
+// is the real head dim's hd^-0.5, already rounded to the activation dtype.
 extern "C" int launch_attn_block(
-    const void* x, int dtype, int nb, int t, int d, int heads, int t_real,
+    const void* x, int dtype, int nb, int t, int d, int dh, int heads,
+    int t_real,
     float scale, const float* ln_s, const float* ln_b, float eps,
     const void* wq, const float* bq, const void* wp, const float* bp,
     void* h, void* qkv, void* heads_out, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return run_float<__nv_bfloat16>(x, dtype, nb, t, d, heads, t_real, scale,
-                                    ln_s, ln_b, eps, wq, bq, wp, bp, h, qkv,
-                                    heads_out, out, st);
+    return run_float<__nv_bfloat16>(x, dtype, nb, t, d, dh, heads, t_real,
+                                    scale, ln_s, ln_b, eps, wq, bq, wp, bp,
+                                    h, qkv, heads_out, out, st);
   if (dtype == kF32)
-    return run_float<float>(x, dtype, nb, t, d, heads, t_real, scale, ln_s,
-                            ln_b, eps, wq, bq, wp, bp, h, qkv, heads_out,
-                            out, st);
+    return run_float<float>(x, dtype, nb, t, d, dh, heads, t_real, scale,
+                            ln_s, ln_b, eps, wq, bq, wp, bp, h, qkv,
+                            heads_out, out, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -98,6 +98,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // shared -> global: the box at coordinates (c0, c1) from `src` (laid out
 // and swizzled as a load of the same map would leave it); TMA writes no
 // element outside the tensor.  Thread writes to `src` must be made
@@ -110,6 +121,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       " [%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
          "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -127,6 +149,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier of `count` threads on named barrier `id` (0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// arrive on named barrier `id` of `count` threads without waiting (the
+// others wait on it with named_barrier)
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -233,6 +261,42 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
                                           int scale_d) {
   asm volatile(
@@ -305,12 +369,60 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x N, f32) += A (64 x 16, bf16) B (16 x N, bf16), N = 16 to 64,
+// A and B from shared memory, both K-major; D as wgmma_rs's.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_small(float* d, uint64_t a,
+                                               uint64_t b, int scale_d) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;"
+        "\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    static_assert(N == 32, "wgmma_ss_small: N is 16, 32 or 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;"
+        "\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int scale_d) {
   if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, b, scale_d);
-  else wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else wgmma_rs_n128<TB>(d, a, b, scale_d);
 }
 
 // ---- host: tensor maps --------------------------------------------------------
@@ -336,8 +448,9 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // A tensor map of `rank` dims of `esize`-byte elements of type `type`
 // (innermost first; strides in bytes of dims 1 ..), box `box`, swizzle of
-// the box's row bytes, zero fill outside the tensor.  Returns a CUDA error
-// code: the base or a stride off TMA's 16-byte rules is refused here.
+// the box's row bytes (none for 16-byte rows), zero fill outside the
+// tensor.  Returns a CUDA error code: the base or a stride off TMA's
+// 16-byte rules is refused here.
 int encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
                const void* base, int rank, const uint64_t* dims,
                const uint64_t* strides, const uint32_t* box) {
@@ -351,7 +464,8 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
   const int row_bytes = static_cast<int>(box[0]) * esize;
   const CUtensorMapSwizzle sw = row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : CU_TENSOR_MAP_SWIZZLE_32B;
+      : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+      : CU_TENSOR_MAP_SWIZZLE_NONE;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], es[5];
   for (int i = 0; i < rank; ++i) {

@@ -1,6 +1,7 @@
-// Greedy NMS kernels for Hopper (sm_90a): kernels A, B and I of the port.
+// Greedy NMS kernels for Hopper (sm_90a): kernels A, B and I of the port,
+// three forms of one ordered scan (greedy_nms_kernel<form>).
 //
-// A  greedy_nms_kernel<false> replaces yolov8_vit_tpu/ops/nms.py
+// A  greedy_nms_kernel<0> replaces yolov8_vit_tpu/ops/nms.py
 //    `_nms_argmax_kernel_ml` (stage-1 EfficientNMS, multi-label,
 //    class-aware): candidates are (class, anchor) pairs; each iteration of
 //    the TPU kernel picks the highest live score (ties to the lowest flat
@@ -8,35 +9,45 @@
 //    IoU with the picked box is above the threshold and the picked entry
 //    itself, and stops at max_output picks or when no live score is above
 //    score_threshold.  Output rows in pick order, zero / -1 padded.
-// B  greedy_nms_kernel<true> replaces `_mask_scan_kernel` (stage-2
+// B  greedy_nms_kernel<1> replaces `_mask_scan_kernel` (stage-2
 //    area-sorted NMS): rows that are valid with score > score_threshold
 //    compete by box area, descending, ties to the lowest row; suppression
 //    is class-agnostic; the output is a keep mask in row order.  The
 //    kernel computes each row's priority itself (valid, score > threshold,
 //    area as ops/boxes.py box_area), or reads it where the wrapper made it.
-// I  nms_argmax_kernel replaces `_nms_argmax_kernel` (stage-1 EfficientNMS,
-//    single-label: one candidate per anchor, its best class).  One CTA per
-//    image keeps the anchors' scores in shared memory and runs the TPU
-//    kernel's loop: a block-wide (max score, min index) reduction, then one
-//    IoU pass over the anchors.  Classes are kept apart as the TPU kernel
-//    keeps them, by shifting each box by label * side before the IoU, in
-//    the same f32 operations: the shifted coordinates round, so a
-//    class-equality mask would decide pairs near the threshold differently.
+// I  greedy_nms_kernel<2> replaces `_nms_argmax_kernel` (stage-1
+//    EfficientNMS, single-label: one candidate per anchor, its best class,
+//    and the class-band side, all taken in the kernel's compaction as the
+//    plain version's `single_label_candidates` takes them): keys
+//    (score desc, anchor asc), which is the TPU kernel's tie-break (the
+//    lowest flat index among equal maxima).  Classes are kept apart as the
+//    TPU kernel keeps them, by shifting each box by label * side before
+//    the IoU, in the same f32 operations: the shifted coordinates round,
+//    so a class-equality mask would decide pairs near the threshold
+//    differently, and every pair is tested (over_thr_i).  Output rows carry
+//    the boxes as given.
 //
-// Why an ordered scan computes what the argmax loop computes (A and B).
+// Why an ordered scan computes what the argmax loop computes.
 // A pick only kills entries; it never changes a live score.  So the next
 // pick is always the first live entry in the order (score desc, flat index
 // asc), and the loop is the greedy scan of that order: keep a candidate
-// unless an earlier kept candidate of its class (any class for B) overlaps
-// it above the threshold.  An entry at or below score_threshold is never
-// picked, and a killed entry (held at -1 for A, -1e9 for B) is never live
-// again while score_threshold >= -1 (the wrapper refuses lower ones), so
-// only the entries above the threshold need ordering.  The pair decision
-// is the TPU kernel's own: IoU(later, earlier) = inter / max(area + c_area
-// - inter, 1e-9) in iou_of's operation order, IEEE division, strict `>`,
-// built with -fmad=false (_build.py).  min / max are symmetric and IEEE
-// addition commutes, so IoU(i, j) is bitwise IoU(j, i), and a pairwise
-// over-threshold mask decides exactly what the per-pick IoU pass decides.
+// unless an earlier kept candidate of its class (any class for B and I)
+// overlaps it above the threshold.  An entry at or below score_threshold
+// is never picked, and a killed entry (held at -1 for A and I, -1e9 for B)
+// is never live again while score_threshold >= -1 (the wrappers refuse
+// lower ones), so only the entries above the threshold need ordering.  The
+// pair decision is the TPU kernel's own, IoU(later, earlier) = inter /
+// max(area + c_area - inter, 1e-9) in iou_of's operation order, IEEE
+// division, strict `>`, built with -fmad=false (_build.py), with `area`
+// the later candidate's and c_area the earlier (picked) one's, as the TPU
+// kernel takes them when the earlier is picked.  For A and B, min / max
+// are symmetric and IEEE addition commutes, so IoU(i, j) is bitwise IoU(j,
+// i).  For I it is not: the later candidate's area is taken on its shifted
+// coordinates and the earlier one's on the coordinates as given.  Every
+// test here (the kept set against a candidate, the pairwise mask of a
+// chunk) is built in the (later, earlier) direction, which is the only
+// one the argmax loop ever evaluates, so a pairwise over-threshold mask
+// decides exactly what the per-pick IoU pass decides for all three forms.
 // A NaN score (or priority) makes the TPU kernel's first max NaN, and it
 // keeps nothing; these kernels do the same.
 //
@@ -44,11 +55,12 @@
 // classes: 9.7 MB of boxes and scores, about 3 us of bytes; the picks are
 // dependent, so each image's kept set is a chain of up to 100 decisions,
 // and what the design can shorten is the work around each decision.  B
-// at (32, 100) rows: 64 KB, launch-latency bound.
+// at (32, 100) rows: 64 KB, launch-latency bound.  I at (32, 8400)
+// anchors x 5 classes: the same 9.7 MB as A, about 3 us of bytes.
 //
 // Design (one CTA per image decides; the TPU kernel's argmax over the
 // whole pool per pick, with its block barriers, is gone):
-//  1. Compact.  Read the image's scores once (A: a cluster of 4 CTAs an
+//  1. Compact.  Read the image's scores once (A, I: a cluster of 4 CTAs an
 //     image, a share each, appending through distributed shared memory to
 //     the first CTA's count and window; the others then exit); every
 //     entry above the threshold becomes a 64-bit key: the score's
@@ -69,8 +81,9 @@
 //  3. Chunks of sorted candidates, 64 growing 2x to CH: their boxes go to
 //     shared memory; in parallel, each candidate is tested against the
 //     boxes kept so far (the first 1,024 in shared memory, the rest in the
-//     output rows for A, a scratch list for B), and the within-chunk
-//     over-threshold bits of each pair (later, earlier) of one class are
+//     output rows for A and I, a scratch list for B), and the within-chunk
+//     over-threshold bits of each pair (later, earlier; of one class for
+//     A) are
 //     set, one warp a 32-candidate word, lanes a bit, by ballot.
 //  4. One warp decides the chunk in order: lane w holds the removed bits of
 //     word w; the next live candidate is a find-first-set; a kept
@@ -87,7 +100,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <climits>
 #include <cmath>
 
 namespace cg = cooperative_groups;
@@ -104,44 +116,18 @@ constexpr float kKilledB = -1e9f;
 // the largest window and chunk a launch may ask for (shared memory:
 // nms_layout, 8 W + 28 CH + CH^2 / 8 bytes + 21 KB)
 constexpr int kMaxWindow = 4096, kMaxChunk = 1024;
-// the kept boxes (and A's labels) held in shared memory, besides the
-// output rows, for the tests against the kept set; past it they are read
-// from the output rows
+// the kept boxes (and A's and I's labels) held in shared memory, besides
+// the output rows, for the tests against the kept set; past it they are
+// read from the output rows
 constexpr int kKeptSmem = 1024;
-// kernel A's CTAs an image (a thread-block cluster: all read the scores,
-// the first goes on alone); its score loads in flight a lane; the first
-// window's and the first chunk's sizes (later ones grow 2x, to the
+// kernel A's and I's CTAs an image (a thread-block cluster: all read the
+// scores, the first goes on alone); its score loads in flight a lane; the
+// first window's and the first chunk's sizes (later ones grow 2x, to the
 // launch's W and CH)
 constexpr int kClusterA = 4;
 constexpr int kLoads = 16, kFirstWindow = 256, kFirstChunk = 64;
-
-// Block-wide argmax: the largest value, ties to the smallest index.  Every
-// thread returns the winner.  `sv`/`si` hold 33 entries of scratch.
-__device__ void block_argmax(float& v, int& idx, float* sv, int* si) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ov > v || (ov == v && oi < idx)) { v = ov; idx = oi; }
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  if (lane == 0) { sv[warp] = v; si[warp] = idx; }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? sv[lane] : -INFINITY;
-    idx = lane < nwarps ? si[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-      if (ov > v || (ov == v && oi < idx)) { v = ov; idx = oi; }
-    }
-    if (lane == 0) { sv[32] = v; si[32] = idx; }
-  }
-  __syncthreads();
-  v = sv[32];
-  idx = si[32];
-  __syncthreads();   // scratch is reused by the next call
-}
+// the kernel's three forms (greedy_nms_kernel's template argument)
+constexpr int kFormA = 0, kFormB = 1, kFormI = 2;
 
 __device__ __forceinline__ float iou_of(float x1, float y1, float x2, float y2,
                                         float cx1, float cy1, float cx2,
@@ -165,11 +151,51 @@ __device__ __forceinline__ bool over_thr(const float4 x, const float4 c,
   return iou_of(x.x, x.y, x.z, x.w, c.x, c.y, c.z, c.w, c_area) > thr;
 }
 
+// Kernel I's pair decision, iou(x, c) > thr with x the later candidate
+// (label lx) and c the earlier kept one (label lc), in the TPU kernel's
+// operations: both boxes shifted by label * side, the intersection and
+// the later box's area on the shifted coordinates, the earlier box's
+// area on its coordinates as given.  The shifted coordinates round, so
+// this is not iou(c, x): the pair is only ever decided in this direction.
+__device__ __forceinline__ bool over_thr_i(const float4 x, int lx,
+                                           const float4 c, int lc,
+                                           float side, float thr) {
+  const float xo = __int2float_rn(lx) * side, co = __int2float_rn(lc) * side;
+  const float x1 = x.x + xo, y1 = x.y + xo, x2 = x.z + xo, y2 = x.w + xo;
+  const float cx1 = c.x + co, cy1 = c.y + co, cx2 = c.z + co,
+              cy2 = c.w + co;
+  const float iw = fmaxf(fminf(x2, cx2) - fmaxf(x1, cx1), 0.f);
+  const float ih = fmaxf(fminf(y2, cy2) - fmaxf(y1, cy1), 0.f);
+  if (iw * ih == 0.f) return 0.f > thr;
+  const float c_area = fmaxf(c.z - c.x, 0.f) * fmaxf(c.w - c.y, 0.f);
+  return iou_of(x1, y1, x2, y2, cx1, cy1, cx2, cy2, c_area) > thr;
+}
+
 // The score half of a candidate key: ascending keys are descending scores.
 // -0 and +0 compare equal, so both take the key of +0.
 __device__ __forceinline__ unsigned score_key(float s) {
   const unsigned u = __float_as_uint(s == 0.f ? 0.f : s);
   return (u & 0x80000000u) ? u : ~(u | 0x80000000u);
+}
+
+// I's candidate of an anchor: its best class score and the first class
+// that has it (torch.max's over the classes; a NaN anywhere makes the
+// image keep nothing, through the kernel's NaN flag, as the TPU kernel's
+// NaN max does)
+__device__ __forceinline__ float best_class(const float* row, int c,
+                                            int& lab, bool& nan) {
+  float best = row[0];
+  lab = 0;
+  nan = best != best;
+  for (int k = 1; k < c; ++k) {
+    const float v = row[k];
+    nan |= v != v;
+    if (v > best) {
+      best = v;
+      lab = k;
+    }
+  }
+  return best;
 }
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -310,20 +336,26 @@ __host__ __device__ inline NmsSmem nms_layout(int W, int CH) {
 
 // Whether candidate box q (class cls) is suppressed by kept box k: the
 // kept set from shared memory, past kKeptSmem from the output rows.
-template <bool kB>
+template <int kForm>
 __device__ __forceinline__ bool kept_over(const float4 q, int cls, int k,
                                           const float4* sbox,
                                           const int* slabel,
                                           const float4* kbox,
-                                          const int* klabel, float thr) {
+                                          const int* klabel, float side,
+                                          float thr) {
   const bool near = k < kKeptSmem;
-  if (!kB && (near ? slabel[k] : klabel[k]) != cls) return false;
-  return over_thr(q, near ? sbox[k] : kbox[k], thr);
+  const int kcls = near ? slabel[k] : klabel[k];
+  const float4 kb = near ? sbox[k] : kbox[k];
+  if constexpr (kForm == kFormI) return over_thr_i(q, cls, kb, kcls, side,
+                                                   thr);
+  if (kForm == kFormA && kcls != cls) return false;
+  return over_thr(q, kb, thr);
 }
 
-template <bool kB>
+template <int kForm>
 __global__ void __launch_bounds__(1024)
 greedy_nms_kernel(const NmsArgs p) {
+  constexpr bool kB = kForm == kFormB, kI = kForm == kFormI;
   extern __shared__ __align__(16) unsigned char nms_smem[];
   const int W = p.window, CH = p.chunk;
   const NmsSmem L = nms_layout(W, CH);
@@ -338,6 +370,7 @@ greedy_nms_kernel(const NmsArgs p) {
   float4* sbox = reinterpret_cast<float4*>(nms_smem + L.sbox);  // kKeptSmem
   int* slabel = reinterpret_cast<int*>(nms_smem + L.slabel);    // kKeptSmem
   __shared__ int s_cnt, s_nan, s_kept, s_flag;
+  __shared__ unsigned s_side;     // I: the bits of max |box coordinate|
   __shared__ u64 s_word;
 
   const int tid = threadIdx.x, bs = blockDim.x;
@@ -353,7 +386,7 @@ greedy_nms_kernel(const NmsArgs p) {
   const float* sc = p.scores == nullptr
                         ? nullptr
                         : p.scores + static_cast<size_t>(b) * n * c;
-  u64* pool = p.pool + static_cast<size_t>(b) * n * c;
+  u64* pool = p.pool + static_cast<size_t>(b) * n * (kI ? 1 : c);
   // the kept list: A's output rows, B's scratch (class-agnostic)
   const int kcap = kB ? n : p.max_out;
   float4* kbox = reinterpret_cast<float4*>(p.out_boxes)
@@ -363,13 +396,19 @@ greedy_nms_kernel(const NmsArgs p) {
   uint8_t* keep = kB ? p.keep + static_cast<size_t>(b) * n : nullptr;
   const float thr = kB ? kKilledB / 2.f : p.score_thr;
 
-  if (tid == 0 && crank == 0) { s_cnt = 0; s_nan = 0; s_kept = 0; }
+  if (tid == 0 && crank == 0) {
+    s_cnt = 0;
+    s_nan = 0;
+    s_kept = 0;
+    s_side = 0;
+  }
   if (kB)
     for (int i = tid; i < n; i += bs) keep[i] = 0;
   // the count, NaN flag and window of the cluster's first CTA (A)
   int* cnt0 = &s_cnt;
   int* nan0 = &s_nan;
   u64* win0 = win;
+  unsigned* side0 = &s_side;
   if constexpr (kB) {
     __syncthreads();
   } else {
@@ -378,6 +417,7 @@ greedy_nms_kernel(const NmsArgs p) {
     cnt0 = cluster.map_shared_rank(&s_cnt, 0);
     nan0 = cluster.map_shared_rank(&s_nan, 0);
     win0 = cluster.map_shared_rank(win, 0);
+    side0 = cluster.map_shared_rank(&s_side, 0);
   }
 
   // ---- 1. compact: every entry above the threshold becomes a key --------
@@ -385,7 +425,7 @@ greedy_nms_kernel(const NmsArgs p) {
   // loads in flight a lane before any is appended (one dependent load a
   // step would leave the loop bound by memory latency); only a
   // candidate's flat position is split into (anchor, class).
-  if (!kB) {
+  if (kForm == kFormA) {
     const int total_in = n * c;
     const int share = ((total_in + csize - 1) / csize + 32 * kLoads - 1)
                       / (32 * kLoads) * (32 * kLoads);
@@ -423,6 +463,41 @@ greedy_nms_kernel(const NmsArgs p) {
         pos += __popc(bal[j]);
       }
     }
+  } else if (kI) {
+    // I's CTAs read a share of the anchors each: an anchor's best class
+    // (its c scores), and the largest |coordinate| of its box, for the
+    // class-band side = 2 (max |boxes| + 1) that the wrapper's plain
+    // version takes (as non-negative floats, their bits order as the
+    // values, and a NaN's above every number, so a NaN coordinate makes
+    // the side NaN, as torch's amax does)
+    const int share = ((n + csize - 1) / csize + 31) / 32 * 32;
+    const int a_lo = crank * share, a_hi = min(n, a_lo + share);
+    unsigned bmax = 0;
+    for (int a0 = a_lo + warp * 32; a0 < a_hi; a0 += bs) {
+      const int a = a0 + lane;
+      float best = -INFINITY;
+      if (a < a_hi) {
+        int lab;
+        bool nan;
+        best = best_class(sc + static_cast<size_t>(a) * c, c, lab, nan);
+        if (nan) *nan0 = 1;
+        const float4 q = bx[a];
+        bmax = max(bmax, max(max(__float_as_uint(q.x) & 0x7fffffffu,
+                                 __float_as_uint(q.y) & 0x7fffffffu),
+                             max(__float_as_uint(q.z) & 0x7fffffffu,
+                                 __float_as_uint(q.w) & 0x7fffffffu)));
+      }
+      const int pos = warp_append(best > thr, cnt0);
+      if (pos >= 0) {
+        const u64 key = (static_cast<u64>(score_key(best)) << 32)
+                        | static_cast<unsigned>(a);
+        pool[pos] = key;
+        if (pos < W) win0[pos] = key;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      bmax = max(bmax, __shfl_xor_sync(kFull, bmax, off));
+    if (lane == 0) atomicMax(side0, bmax);
   } else {
     for (int a0 = warp * 32; a0 < n; a0 += bs) {
       const int a = a0 + lane;
@@ -457,6 +532,8 @@ greedy_nms_kernel(const NmsArgs p) {
     if (crank != 0) return;
   }
   const int total = s_nan ? 0 : s_cnt;
+  // I: every box of the image is in s_side now
+  const float side = kI ? 2.f * (__uint_as_float(s_side) + 1.f) : 0.f;
   int remaining = total, kept = 0;
   u64 lo = 0;
   bool first = true;
@@ -481,11 +558,17 @@ greedy_nms_kernel(const NmsArgs p) {
         const u64 key = pool[i];
         if (key < lo || key == ~0ull) continue;
         const unsigned flat = static_cast<unsigned>(key);
-        const int cls = kB ? 0 : static_cast<int>(flat / n);
-        const float4 q = bx[static_cast<int>(flat) - cls * n];
+        const int cls = kB || kI ? 0 : static_cast<int>(flat / n);
+        const int a = static_cast<int>(flat) - cls * n;
+        const float4 q = bx[a];
+        int tag = cls;
+        if (kI) {
+          bool nan;
+          best_class(sc + static_cast<size_t>(a) * c, c, tag, nan);
+        }
         for (int k = 0; k < kept; ++k)
-          if (kept_over<kB>(q, cls, k, sbox, slabel, kbox, klabel,
-                            p.iou_thr)) {
+          if (kept_over<kForm>(q, tag, k, sbox, slabel, kbox, klabel, side,
+                               p.iou_thr)) {
             pool[i] = ~0ull;
             ++dropped;
             break;
@@ -558,11 +641,19 @@ greedy_nms_kernel(const NmsArgs p) {
       const int C = min(chunk, wc - c0), nw = (C + 31) >> 5;
       for (int i = tid; i < C; i += bs) {
         const unsigned flat = static_cast<unsigned>(win[c0 + i]);
-        const int cls = kB ? 0 : static_cast<int>(flat / n);
+        const int cls = kB || kI ? 0 : static_cast<int>(flat / n);
         const int a = static_cast<int>(flat) - cls * n;
         cbox[i] = bx[a];
-        if (!kB) cscore[i] = sc[static_cast<size_t>(a) * c + cls];
-        ctag[i] = kB ? a : cls;
+        if constexpr (kI) {
+          bool nan;
+          int lab;
+          cscore[i] = best_class(sc + static_cast<size_t>(a) * c, c, lab,
+                                 nan);
+          ctag[i] = lab;
+        } else {
+          if (!kB) cscore[i] = sc[static_cast<size_t>(a) * c + cls];
+          ctag[i] = kB ? a : cls;
+        }
       }
       for (int w = tid; w < nw; w += bs) {
         const int lim = C - 32 * w;    // bits at and past C count as removed
@@ -576,8 +667,8 @@ greedy_nms_kernel(const NmsArgs p) {
           const float4 q = cbox[i];
           bool over = false;
           for (int k = lane; k < kept && !over; k += 32)
-            over = kept_over<kB>(q, ctag[i], k, sbox, slabel, kbox, klabel,
-                                 p.iou_thr);
+            over = kept_over<kForm>(q, ctag[i], k, sbox, slabel, kbox,
+                                    klabel, side, p.iou_thr);
           if (__any_sync(kFull, over) && lane == 0)
             atomicOr(&crem[i >> 5], 1u << (i & 31));
         }
@@ -591,8 +682,13 @@ greedy_nms_kernel(const NmsArgs p) {
         for (int i = warp; i < rows; i += nwarps) {
           if ((crem[i >> 5] >> (i & 31)) & 1u) continue;
           bool over = false;
-          if (j > i && j < C && (kB || ctag[j] == ctag[i]))
-            over = over_thr(cbox[j], cbox[i], p.iou_thr);
+          if (j > i && j < C) {
+            if constexpr (kI)
+              over = over_thr_i(cbox[j], ctag[j], cbox[i], ctag[i], side,
+                                p.iou_thr);
+            else if (kB || ctag[j] == ctag[i])
+              over = over_thr(cbox[j], cbox[i], p.iou_thr);
+          }
           const unsigned bits = __ballot_sync(kFull, over);
           if (lane == 0) cmask[i * nw + w] = bits;
         }
@@ -661,7 +757,7 @@ size_t nms_smem_bytes(int window, int chunk) {
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-template <bool kB>
+template <int kForm>
 int launch_greedy(const NmsArgs& a, int batch, int threads, int cluster,
                   cudaStream_t st) {
   if (!pow2(a.window) || !pow2(a.chunk) || a.window > kMaxWindow
@@ -669,12 +765,12 @@ int launch_greedy(const NmsArgs& a, int batch, int threads, int cluster,
     return static_cast<int>(cudaErrorInvalidValue);
   // once a process: the largest window and chunk a launch may take
   static const cudaError_t attr = cudaFuncSetAttribute(
-      greedy_nms_kernel<kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      greedy_nms_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(nms_smem_bytes(kMaxWindow, kMaxChunk)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (batch == 0) return 0;
   if (cluster == 1) {
-    greedy_nms_kernel<kB><<<batch, threads,
+    greedy_nms_kernel<kForm><<<batch, threads,
                             nms_smem_bytes(a.window, a.chunk), st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
@@ -690,79 +786,10 @@ int launch_greedy(const NmsArgs& a, int batch, int threads, int cluster,
   dims[0].val.clusterDim.z = 1;
   cfg.attrs = dims;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, greedy_nms_kernel<kB>, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, greedy_nms_kernel<kForm>,
+                                           a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
-}
-
-// boxes (B, n, 4), per-anchor best score (B, n) and its label as f32
-// (B, n), side (B,) -> the outputs of kernel A.  Output rows carry the
-// box as given, not shifted.
-__global__ void nms_argmax_kernel(const float* __restrict__ boxes,
-                                  const float* __restrict__ scores,
-                                  const float* __restrict__ labels,
-                                  const float* __restrict__ sides, int n,
-                                  float iou_thr, float score_thr,
-                                  int max_out, int* __restrict__ num_dets,
-                                  float* __restrict__ out_boxes,
-                                  float* __restrict__ out_scores,
-                                  int* __restrict__ out_labels) {
-  extern __shared__ float smem[];
-  float* scs = smem;                              // n
-  float* red_v = smem + n;                        // 33
-  int* red_i = reinterpret_cast<int*>(red_v + 33);  // 33
-  const int b = blockIdx.x;
-  const float* bx = boxes + static_cast<size_t>(b) * n * 4;
-  const float* lab = labels + static_cast<size_t>(b) * n;
-  const float side = sides[b];
-  float* ob = out_boxes + static_cast<size_t>(b) * max_out * 4;
-  float* os = out_scores + static_cast<size_t>(b) * max_out;
-  int* ol = out_labels + static_cast<size_t>(b) * max_out;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    scs[i] = scores[static_cast<size_t>(b) * n + i];
-  for (int s = threadIdx.x; s < max_out; s += blockDim.x) {
-    ob[4 * s] = 0.f; ob[4 * s + 1] = 0.f; ob[4 * s + 2] = 0.f;
-    ob[4 * s + 3] = 0.f;
-    os[s] = 0.f;
-    ol[s] = -1;
-  }
-  __syncthreads();
-
-  int kept = 0;
-  while (kept < max_out) {
-    float v = -INFINITY;
-    int idx = INT_MAX;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float s = scs[i];
-      if (s > v) { v = s; idx = i; }
-    }
-    block_argmax(v, idx, red_v, red_i);
-    if (!(v > score_thr)) break;
-    const float cx1 = bx[4 * idx], cy1 = bx[4 * idx + 1];
-    const float cx2 = bx[4 * idx + 2], cy2 = bx[4 * idx + 3];
-    const float clab = lab[idx];
-    const float coff = clab * side;
-    // the selected box's area is taken on the coordinates as given
-    const float c_area = fmaxf(cx2 - cx1, 0.f) * fmaxf(cy2 - cy1, 0.f);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const float off = lab[j] * side;
-      const float iou = iou_of(bx[4 * j] + off, bx[4 * j + 1] + off,
-                               bx[4 * j + 2] + off, bx[4 * j + 3] + off,
-                               cx1 + coff, cy1 + coff, cx2 + coff,
-                               cy2 + coff, c_area);
-      if (iou > iou_thr || j == idx) scs[j] = -1.f;
-    }
-    if (threadIdx.x == 0) {
-      ob[4 * kept] = cx1; ob[4 * kept + 1] = cy1;
-      ob[4 * kept + 2] = cx2; ob[4 * kept + 3] = cy2;
-      os[kept] = v;
-      ol[kept] = static_cast<int>(clab);
-    }
-    ++kept;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) num_dets[b] = kept;
 }
 
 }  // namespace
@@ -792,27 +819,37 @@ extern "C" int launch_nms_argmax_ml(const float* boxes, const float* scores,
   a.out_boxes = out_boxes;
   a.out_scores = out_scores;
   a.out_labels = out_labels;
-  return launch_greedy<false>(a, batch, 1024, kClusterA,
+  return launch_greedy<kFormA>(a, batch, 1024, kClusterA,
                               static_cast<cudaStream_t>(stream));
 }
 
+// Kernel I.  boxes (B, n, 4), scores (B, n, c) f32; pool (B, n) 8-byte
+// scratch; outputs as kernel A's (the boxes as given, not shifted).  The
+// kernel takes each anchor's best class and the class-band side itself.
+// window, chunk as kernel A's.  Needs score_thr >= -1.
 extern "C" int launch_nms_argmax(const float* boxes, const float* scores,
-                                 const float* labels, const float* sides,
-                                 int batch, int n, float iou_thr,
-                                 float score_thr, int max_out, int* num_dets,
+                                 int batch, int n, int c, float iou_thr,
+                                 float score_thr, int max_out, int window,
+                                 int chunk, void* pool, int* num_dets,
                                  float* out_boxes, float* out_scores,
                                  int* out_labels, void* stream) {
-  const size_t smem = (static_cast<size_t>(n) + 66) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      nms_argmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (batch == 0) return 0;
-  nms_argmax_kernel<<<batch, 1024, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      boxes, scores, labels, sides, n, iou_thr, score_thr, max_out, num_dets,
-      out_boxes, out_scores, out_labels);
-  return static_cast<int>(cudaGetLastError());
+  NmsArgs a{};
+  a.boxes = boxes;
+  a.scores = scores;
+  a.n = n;
+  a.c = c;
+  a.iou_thr = iou_thr;
+  a.score_thr = score_thr;
+  a.max_out = max_out;
+  a.window = window;
+  a.chunk = chunk;
+  a.pool = static_cast<u64*>(pool);
+  a.num_dets = num_dets;
+  a.out_boxes = out_boxes;
+  a.out_scores = out_scores;
+  a.out_labels = out_labels;
+  return launch_greedy<kFormI>(a, batch, 1024, kClusterA,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B.  boxes (B, n, 4) f32; either scores (B, n) f32 and valid
@@ -840,6 +877,6 @@ extern "C" int launch_mask_scan(const float* boxes, const float* scores,
   a.pool = static_cast<u64*>(pool);
   a.out_boxes = kept;
   a.keep = keep;
-  return launch_greedy<true>(a, batch, 1024, 1,
+  return launch_greedy<kFormB>(a, batch, 1024, 1,
                              static_cast<cudaStream_t>(stream));
 }

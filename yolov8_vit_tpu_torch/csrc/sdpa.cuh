@@ -88,15 +88,25 @@ __device__ __forceinline__ float ex2_approx(float x) {
 constexpr int kSdpaStages = 4;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A K or V tile of 64 keys: head dims above 64 are held as 64-feature
+// sub-tiles (a swizzled row is at most 128 bytes), one TMA box each, side
+// by side.  Head dim 128 keeps 3 stages, so that two CTAs fit an SM.
 template <int HD>
 struct KvTile {
-  static constexpr int kRowBytes = 2 * HD;             // one key's head slice
-  static constexpr int kBytes = kKeyTile * kRowBytes;  // a K or a V tile
+  static constexpr int kSub = HD < 64 ? HD : 64;       // features a sub-tile
+  static constexpr int kSubs = HD / kSub;
+  static constexpr int kRowBytes = 2 * kSub;           // one key's slice
+  static constexpr int kSubBytes = kKeyTile * kRowBytes;
+  static constexpr int kBytes = kSubs * kSubBytes;     // a K or a V tile
   static constexpr int kStage = 2 * kBytes;            // K | V
   static constexpr unsigned kGroup = 8 * kRowBytes;    // 8 rows: the SBO
+  // V read MN-major: the stride between its 64-feature swizzle atoms
+  static constexpr unsigned kAtoms = kSubs > 1 ? kSubBytes : kGroup;
   static constexpr uint64_t kLayout = gmma_layout(kRowBytes);
+  static constexpr int kStages = HD > 64 ? 3 : kSdpaStages;
+  static constexpr int kMinBlocks = HD > 64 ? 2 : 3;
   static constexpr size_t kSmem =
-      kSdpaStages * kStage + 1024 + 2 * kSdpaStages * sizeof(uint64_t);
+      kStages * kStage + 1024 + 2 * kStages * sizeof(uint64_t);
 };
 
 // s (64 rows of this warpgroup x 64 keys; 16 rows a warp, mma.sync's C
@@ -113,7 +123,9 @@ __device__ __forceinline__ void scores_bf16(float (*s)[4],
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
     wgmma_rs<64, 0>(&s[0][0], qf[kk],
-                    gmma_desc(ks + kk * 32, 16, L::kGroup, L::kLayout),
+                    gmma_desc(ks + kk / (L::kSub / 16) * L::kSubBytes
+                                  + kk % (L::kSub / 16) * 32,
+                              16, L::kGroup, L::kLayout),
                     kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
@@ -128,19 +140,19 @@ __device__ __forceinline__ void scores_bf16(float (*s)[4],
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128 + 32, 3)
+__global__ void __launch_bounds__(128 + 32, KvTile<HD>::kMinBlocks)
 sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, SdpaArgs a) {
   using L = KvTile<HD>;
   extern __shared__ uint8_t sdpa_smem[];
   uint8_t* tiles = align_1024(sdpa_smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kSdpaStages * L::kStage);
-  uint64_t* empty = full + kSdpaStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + L::kStages * L::kStage);
+  uint64_t* empty = full + L::kStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, img = blockIdx.z;
   const int nk = (a.t + kKeyTile - 1) / kKeyTile;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kSdpaStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4);
     }
@@ -151,15 +163,19 @@ sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   if (warp == 4) {                       // the producer warp
     if (lane == 0) {
       for (int i = 0; i < 2 * nk; ++i) {   // pass 1: K; pass 2: K and V
-        const int st = i % kSdpaStages;
-        mbar_wait(&empty[st], ((i / kSdpaStages) & 1) ^ 1);
+        const int st = i % L::kStages;
+        mbar_wait(&empty[st], ((i / L::kStages) & 1) ^ 1);
         const bool pass2 = i >= nk;
         const int k0 = (pass2 ? i - nk : i) * kKeyTile;
         uint8_t* dst = tiles + st * L::kStage;
         mbar_expect_tx(&full[st], pass2 ? 2 * L::kBytes : L::kBytes);
-        tma_load_3d(dst, &tk, &full[st], h * HD, k0, img);
-        if (pass2)
-          tma_load_3d(dst + L::kBytes, &tv, &full[st], h * HD, k0, img);
+        for (int sub = 0; sub < L::kSubs; ++sub) {
+          const int f = h * HD + sub * L::kSub;
+          tma_load_3d(dst + sub * L::kSubBytes, &tk, &full[st], f, k0, img);
+          if (pass2)
+            tma_load_3d(dst + L::kBytes + sub * L::kSubBytes, &tv, &full[st],
+                        f, k0, img);
+        }
       }
     }
     return;
@@ -204,8 +220,8 @@ sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   float s[8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int i = 0; i < nk; ++i) {                           // pass 1
-    const int st = i % kSdpaStages;
-    mbar_wait(&full[st], (i / kSdpaStages) & 1);
+    const int st = i % L::kStages;
+    mbar_wait(&full[st], (i / L::kStages) & 1);
     scores_bf16<HD>(s, qf, tiles + st * L::kStage, i * kKeyTile, a.t_real);
     if (lane == 0) mbar_arrive(&empty[st]);
 #pragma unroll
@@ -236,8 +252,8 @@ sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
   for (int nb = 0; nb < HD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
   for (int i = 0; i < nk; ++i) {                           // pass 2
-    const int it = nk + i, st = it % kSdpaStages;
-    mbar_wait(&full[st], (it / kSdpaStages) & 1);
+    const int it = nk + i, st = it % L::kStages;
+    mbar_wait(&full[st], (it / L::kStages) & 1);
     const uint8_t* stage = tiles + st * L::kStage;
     scores_bf16<HD>(s, qf, stage, i * kKeyTile, a.t_real);
     // P's A fragments, 16 keys a k-step: p = e * (1 / l), rounded once
@@ -260,7 +276,7 @@ sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs<HD, 1>(&o[0][0], pf[kk],
                       gmma_desc(stage + L::kBytes + kk * 16 * L::kRowBytes,
-                                L::kGroup, L::kGroup, L::kLayout), 1);
+                                L::kAtoms, L::kGroup, L::kLayout), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<HD / 2>(&o[0][0]);
@@ -291,7 +307,7 @@ int launch_sdpa_bf16(const SdpaArgs& a, int nb, cudaStream_t st) {
                             static_cast<uint64_t>(nb)};
   const uint64_t strides[2] = {static_cast<uint64_t>(a.ld) * 2,
                                static_cast<uint64_t>(a.bstride) * 2};
-  const uint32_t box[3] = {HD, kKeyTile, 1};
+  const uint32_t box[3] = {L::kSub, kKeyTile, 1};
   CUtensorMap tk, tv;
   int e = encode_bf16_map(&tk, a.k, 3, dims, strides, box);
   if (e) return e;
@@ -347,7 +363,9 @@ sdpa_f32_kernel(SdpaArgs a) {
     const float* qr = qs + r * HD;
     const float* kr = ks + j * (HD + 1);
     float acc = 0.f;
-#pragma unroll
+    // the same sequential sum at every unroll; at head dim 128 a full
+    // unroll spills
+#pragma unroll (HD > 64 ? 32 : HD)
     for (int c = 0; c < HD; ++c) acc = __fmaf_rn(qr[c], kr[c], acc);
     if (!a.prescale) acc = acc * a.scale;
     return k0 + j >= a.t_real ? -INFINITY : acc;
@@ -441,9 +459,10 @@ int launch_sdpa_hd(const SdpaArgs& a, int dtype, int nb, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The core over nb images; head dims 16, 32 and 64 (every ViT the package
-// defines has 64; the small test shapes use 16 and 32).  Keys at or past
-// min(t_real, t) are masked.
+// The core over nb images; head dims 16, 32, 64 and 128 (every ViT the
+// package defines has 64; the small test shapes use 16 and 32; the
+// wrappers zero-pad any other head dim up to 128 to the next of these).
+// Keys at or past min(t_real, t) are masked.
 int launch_sdpa(SdpaArgs a, int dtype, int nb, int hd, cudaStream_t st) {
   if (nb == 0 || a.t == 0) return 0;
   if (dtype != kBF16 && dtype != kF32)
@@ -453,6 +472,7 @@ int launch_sdpa(SdpaArgs a, int dtype, int nb, int hd, cudaStream_t st) {
     case 16: return launch_sdpa_hd<16>(a, dtype, nb, st);
     case 32: return launch_sdpa_hd<32>(a, dtype, nb, st);
     case 64: return launch_sdpa_hd<64>(a, dtype, nb, st);
+    case 128: return launch_sdpa_hd<128>(a, dtype, nb, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,7 +8,7 @@ from yolov8_vit_tpu_torch.ops.boxes import (  # noqa: F401
 from yolov8_vit_tpu_torch.ops.crop import crop_to_patches_i8  # noqa: F401
 from yolov8_vit_tpu_torch.ops.dfl import dfl_decode, make_anchors  # noqa: F401
 from yolov8_vit_tpu_torch.ops.fused_region import (  # noqa: F401
-    fused_b1b2, region_b1b2_plain,
+    fused_b1b2, prepare_region, region_b1b2_plain,
 )
 # (`letterbox`, the exact-gather form, is imported from its module: the
 # name `ops.letterbox` stays the module)
@@ -28,8 +28,9 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 )
 
 # the wrappers that launch a CUDA kernel, each with its `launches` count
-# (kernels A-F, then G-J; kernel I is efficient_nms_scan(multi_label=False),
-# counted on nms_single_label)
+# (kernels A-F, then G-J; A, B and I are three forms of one ordered-scan
+# kernel, csrc/nms.cu `greedy_nms_kernel`; I is
+# efficient_nms_scan(multi_label=False), counted on nms_single_label)
 KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
                    fused_attention_block_i8, fused_attention_block,
                    flash_attention, quant_dense_fused, quant_mlp_fused,

@@ -29,8 +29,9 @@ from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
                                             quant_dense_pre, round_up16,
                                             transposed_i8)
 
-# head dims the CUDA SDPA core is built for
-SDPA_HEAD_DIMS = (16, 32, 64)
+# head dims the CUDA SDPA core is built for; the wrappers zero-pad any
+# other head dim up to the last of them to the next one
+SDPA_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, p_dtype, out_dtype):
@@ -59,12 +60,40 @@ def sdpa_heads_plain(qkv: torch.Tensor, heads: int,
     return _softmax_pv(s, v, dt, dt).reshape(b, t, d)
 
 
-def _sdpa_ok(dtype, d: int, heads: int) -> None:
-    if dtype not in DTYPE_CODES or d % 8 or d % heads \
-            or d // heads not in SDPA_HEAD_DIMS:
-        raise ValueError(f"the SDPA core takes f32/bf16 with D a multiple "
-                         f"of 8 and head dims {SDPA_HEAD_DIMS}; got {dtype}, "
-                         f"D={d}, heads={heads}")
+def _padded_head_dim(dtype, d: int, heads: int, what: str) -> int:
+    """The head dim the SDPA core runs for D = heads x hd: the least of
+    SDPA_HEAD_DIMS >= hd (the wrapper zero-pads each head to it).  Raises
+    where the kernel takes no such input: another dtype, D not a multiple
+    of heads (and of 8, for TMA's 16-byte rows), hd above 128."""
+    if not heads or d % heads:
+        hdp = None
+    else:
+        hdp = min((h for h in SDPA_HEAD_DIMS if h >= d // heads),
+                  default=None)
+    if dtype not in DTYPE_CODES or d % 8 or hdp is None:
+        raise ValueError(f"{what} takes f32/bf16 with D a multiple of 8 and "
+                         f"of heads, and a head dim up to "
+                         f"{SDPA_HEAD_DIMS[-1]}; got {dtype}, D={d}, "
+                         f"heads={heads}")
+    return hdp
+
+
+def _per_head(v: torch.Tensor, parts: int, heads: int,
+              hdp: int) -> torch.Tensor:
+    """(..., parts x heads x hd) columns (q | k | v: parts 3) -> (...,
+    parts x heads x hdp): each head's columns, then zero columns."""
+    lead = v.shape[:-1]
+    hd = v.shape[-1] // (parts * heads)
+    return pad_cols(v.reshape(*lead, parts, heads, hd), hdp).reshape(
+        *lead, parts * heads * hdp)
+
+
+def _per_head_rows(w: torch.Tensor, heads: int, hdp: int) -> torch.Tensor:
+    """(heads x hd, n) rows (the proj weight's) -> (heads x hdp, n): each
+    head's rows, then zero rows."""
+    hd = w.shape[0] // heads
+    return pad_cols(w.reshape(heads, hd, -1).transpose(1, 2), hdp) \
+        .transpose(1, 2).reshape(heads * hdp, -1)
 
 
 # ---- kernel D ----------------------------------------------------------------
@@ -92,17 +121,10 @@ def _head_padded_i8(wqkv_i8, sqkv, bqkv, wproj_i8, sproj, bproj, heads,
     exactly zero, so they add nothing to q.k and give zero output columns,
     which the proj weight's zero rows drop."""
     d = wqkv_i8.shape[0]
-    hd = d // heads
-
-    def per_head(v, lead):                  # (..., 3D) -> (..., 3 H hdp)
-        v = v.reshape(*lead, 3, heads, hd)
-        return pad_cols(v, hdp).reshape(*lead, 3 * heads * hdp)
-
-    wqt = padded_t(per_head(wqkv_i8, (d,)))
-    wp = pad_cols(wproj_i8.reshape(heads, hd, d).transpose(1, 2), hdp)
-    wpt = padded_t(wp.transpose(1, 2).reshape(heads * hdp, d))
     dp = round_up16(d)
-    return (wqt, per_head(sqkv, ()), per_head(bqkv, ()), wpt,
+    return (padded_t(_per_head(wqkv_i8, 3, heads, hdp)),
+            _per_head(sqkv, 3, heads, hdp), _per_head(bqkv, 3, heads, hdp),
+            padded_t(_per_head_rows(wproj_i8, heads, hdp)),
             pad_cols(sproj, dp), pad_cols(bproj, dp))
 
 
@@ -117,7 +139,7 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     (wqkv_t, wproj_t: their (out, in) copies, made once by a caller that
     runs many forwards; without them the wrapper transposes per call);
     scales, biases and LN params f32.  t_real < T masks key columns
-    >= t_real.  Any D with a head dim up to 64: a head dim the SDPA core
+    >= t_real.  Any D with a head dim up to 128: a head dim the SDPA core
     does not run (SDPA_HEAD_DIMS) is zero-padded to the next one, the
     weights laid out so per call (`_head_padded_i8`).  CUDA tensors launch
     kernel D; CPU tensors run the plain version."""
@@ -131,9 +153,9 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
                                    vecs[3], wproj_i8, vecs[4], vecs[5],
                                    heads=heads, ln_eps=ln_eps, t_real=t_real)
     dt = x.dtype
-    hd = d // heads
+    hd = d // heads if heads and d % heads == 0 else 0
     hdp = min((h for h in SDPA_HEAD_DIMS if h >= hd), default=None)
-    if dt not in DTYPE_CODES or d % heads or hdp is None:
+    if dt not in DTYPE_CODES or not hd or hdp is None:
         raise ValueError(f"kernel D takes f32/bf16 with a head dim up to "
                          f"{SDPA_HEAD_DIMS[-1]}; got {dt}, D={d}, "
                          f"heads={heads}")
@@ -195,6 +217,17 @@ def fused_attention_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
     return (xx + y).reshape(b, t, d).to(dt)
 
 
+def _head_padded_float(wqkv, bqkv, wproj, heads: int, hdp: int):
+    """Kernel E's weights where the head dim is not one the SDPA core
+    takes: each head's q, k and v columns of wqkv (D, 3D) and bqkv padded
+    with zero columns to hdp, wproj's rows (D, D) to match: (D, 3 H hdp),
+    (3 H hdp,), (H hdp, D).  As D's (`_head_padded_i8`), the padded
+    columns of q, k and v are zero, add nothing to q.k and give zero head
+    outputs, which the zero rows of the proj weight drop."""
+    return (_per_head(wqkv, 3, heads, hdp), _per_head(bqkv, 3, heads, hdp),
+            _per_head_rows(wproj, heads, hdp).contiguous())
+
+
 def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
                           wproj, bproj, *, heads: int, ln_eps: float = 1e-6,
                           t_real: int | None = None) -> torch.Tensor:
@@ -205,8 +238,11 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
     them cast once (models/vit.py caches the cast per load); at bf16 the
     kernel reads them through TMA, which needs 16-byte aligned bases (a
     view off that raises).  Biases and LN params are used in f32.  t_real
-    < T masks key columns >= t_real.  CUDA tensors launch kernel E; CPU
-    tensors run the plain version."""
+    < T masks key columns >= t_real.  Any D (a multiple of 8) with a head
+    dim up to 128: a head dim the SDPA core does not run is zero-padded to
+    the next one, each head's QKV columns and proj rows laid out so per
+    call (as D's).  CUDA tensors launch kernel E; CPU tensors run the
+    plain version."""
     b, t, d = x.shape
     dt = x.dtype
     f32 = torch.float32
@@ -218,23 +254,26 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
         return fused_attention_block_plain(
             xc, vecs[0], vecs[1], wq, vecs[2], wp, vecs[3], heads=heads,
             ln_eps=ln_eps, t_real=t_real)
-    _sdpa_ok(dt, d, heads)
+    hdp = _padded_head_dim(dt, d, heads, "kernel E")
+    hd = d // heads
+    if hdp != hd:
+        wq, vecs[2], wp = _head_padded_float(wq, vecs[2], wp, heads, hdp)
     m = b * t
     dev = x.device
-    hd = d // heads
+    dh = heads * hdp
     h = torch.empty(m, d, dtype=dt, device=dev)
-    qkv = torch.empty(m, 3 * d, dtype=dt, device=dev)
-    heads_out = torch.empty(m, d, dtype=dt, device=dev)
+    qkv = torch.empty(m, 3 * dh, dtype=dt, device=dev)
+    heads_out = torch.empty(m, dh, dtype=dt, device=dev)
     out = torch.empty_like(xc)
     scale = float(torch.tensor(hd ** -0.5, dtype=dt))
     so = _build.lib("attention")
     fn = so.launch_attn_block
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_float] + [ctypes.c_void_p] * 9)
     fn.restype = ctypes.c_int
     p = [v.data_ptr() for v in vecs]
-    rc = fn(xc.data_ptr(), DTYPE_CODES[dt], b, t, d, heads,
+    rc = fn(xc.data_ptr(), DTYPE_CODES[dt], b, t, d, dh, heads,
             t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
             wq.data_ptr(), p[2], wp.data_ptr(), p[3], h.data_ptr(),
             qkv.data_ptr(), heads_out.data_ptr(), out.data_ptr(),
@@ -276,20 +315,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     (B, T, 3, H, D) qkv, read in place; a view the kernel cannot read so
     (`_strided_ok`: TMA's 16-byte rules, heads adjacent, rows apart), or
     views with different row or image strides, are copied contiguous
-    first.  CUDA tensors launch kernel F; CPU tensors run the plain
-    version."""
+    first.  A head dim the SDPA core does not run (SDPA_HEAD_DIMS; up to
+    128) is zero-padded to the next one: q, k and v copied into padded
+    buffers, the output sliced (the scale stays the real hd^-0.5).  CUDA
+    tensors launch kernel F; CPU tensors run the plain version."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v)
     b, t, heads, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape \
             or len({q.dtype, k.dtype, v.dtype}) != 1:
         raise ValueError("kernel F takes q, k, v of one shape and dtype")
-    _sdpa_ok(q.dtype, heads * hd, heads)
-    q, k, v = (x if _strided_ok(x, hd) else x.contiguous()
+    hdp = _padded_head_dim(q.dtype, heads * hd, heads, "kernel F")
+    if hdp != hd:
+        q, k, v = (pad_cols(x, hdp) for x in (q, k, v))
+    q, k, v = (x if _strided_ok(x, hdp) else x.contiguous()
                for x in (q, k, v))
     if not (q.stride()[:2] == k.stride()[:2] == v.stride()[:2]):
         q, k, v = (x.contiguous() for x in (q, k, v))
-    out = torch.empty(b, t, heads, hd, dtype=q.dtype, device=q.device)
+    out = torch.empty(b, t, heads, hdp, dtype=q.dtype, device=q.device)
     so = _build.lib("attention")
     fn = so.launch_flash_attention
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -297,11 +340,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
-            b, t, heads, hd, q.stride(1), q.stride(0), hd ** -0.5,
+            b, t, heads, hdp, q.stride(1), q.stride(0), hd ** -0.5,
             out.data_ptr(), _build.stream_ptr())
     flash_attention.launches += 1
     _build.check(so, rc, "flash_attention (kernel F)")
-    return out
+    return out if hdp == hd else out[..., :hd]
 
 
 flash_attention.launches = 0

@@ -4,21 +4,22 @@
     conf .25, top 100, class-aware), fixed-size (num_dets, boxes, scores,
     labels) outputs.  multi_label=True (the default, what the pipeline
     runs): every (anchor, class) pair a candidate; on the card kernel A
-    (csrc/nms.cu `greedy_nms_kernel<false>`, `nms_argmax_ml_kernel` here),
+    (csrc/nms.cu `greedy_nms_kernel<0>`, `nms_argmax_ml_kernel` here),
     which replaces yolov8_vit_tpu/ops/nms.py `_nms_argmax_kernel_ml`.
     multi_label=False: one candidate per anchor, its best class, classes
     kept apart by a per-class coordinate offset; on the card kernel I
-    (`nms_argmax_kernel`), which replaces `_nms_argmax_kernel`.
+    (csrc/nms.cu `greedy_nms_kernel<2>`, `nms_single_label` here), which
+    replaces `_nms_argmax_kernel`.
  2. Stage 2, `area_sorted_nms`: conf > .35, priority = box area, class-
     agnostic suppression at IoU .45, keep mask in row order.  On the card
-    this is kernel B (csrc/nms.cu `greedy_nms_kernel<true>`,
+    this is kernel B (csrc/nms.cu `greedy_nms_kernel<1>`,
     `mask_scan_kernel` here), which replaces `_mask_scan_kernel`.
 
 The TPU kernels pick the highest live entry each iteration (ties to the
 lowest flat index), so their trip count is the number of boxes kept.  The
 plain versions below run that loop batched over images with torch ops; the
-wrappers use them only for CPU tensors.  Kernels A and B compute the same
-kept sets as one greedy scan of the candidates above the threshold in
+wrappers use them only for CPU tensors.  Kernels A, B and I compute the
+same kept sets as one greedy scan of the candidates above the threshold in
 (score desc, flat index asc) order, sorted in windows and decided in
 chunks (the source note of csrc/nms.cu says why the two agree, and gives
 the bounds on the H100).
@@ -35,7 +36,7 @@ from yolov8_vit_tpu_torch.ops.boxes import box_area
 _KILLED = -1e9
 _BIG = 2 ** 30
 
-# kernels A and B sort the candidates above the threshold in windows of up
+# kernels A, B and I sort the candidates above the threshold in windows of up
 # to NMS_WINDOW keys and decide them in chunks growing to NMS_CHUNK (powers
 # of two, 32 to 4096 and 32 to 1024; csrc/nms.cu).  Read at each launch, so
 # tests set smaller ones to cross window and chunk boundaries at small
@@ -47,7 +48,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "launch_nms_argmax_ml": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
     + [_P] * 6,
-    "launch_nms_argmax": [_P] * 4 + [_I, _I, _F, _F, _I] + [_P] * 5,
+    "launch_nms_argmax": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
+    + [_P] * 6,
     "launch_mask_scan": [_P] * 4 + [_I, _I, _F, _F, _I, _I] + [_P] * 4,
 }
 _launchers: dict = {}
@@ -114,7 +116,8 @@ def nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
 
 
 def single_label_candidates(boxes: torch.Tensor, scores: torch.Tensor):
-    """What the single-label form computes ahead of its kernel, per image:
+    """What the single-label form computes ahead of its loop (the plain
+    version; kernel I takes the same in its compaction), per image:
     each anchor's best score, its label as f32 (the first maximum on
     ties), and the class-band stride side = 2 (max |boxes| + 1): boxes may
     have negative coordinates, so each band covers [-side/2, side/2]."""
@@ -244,36 +247,47 @@ def nms_single_label(boxes, scores, iou_threshold, score_threshold,
     if single:
         boxes, scores = boxes[None], scores[None]
     boxes = boxes.to(torch.float32).contiguous()
-    scores = scores.to(torch.float32)
+    scores = scores.to(torch.float32).contiguous()
     b, n, _ = scores.shape
     if boxes.shape != (b, n, 4):
         raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
                          f"{tuple(scores.shape)}")
-    per_score, per_label, side = single_label_candidates(boxes, scores)
-    if _build.on_cpu(boxes, per_score):
-        out = nms_argmax_plain(boxes, per_score, per_label, side,
+    if _build.on_cpu(boxes, scores):
+        out = nms_argmax_plain(boxes, *single_label_candidates(boxes, scores),
                                iou_threshold, score_threshold, max_output)
     else:
-        if (n + 66) * 4 > 232448:
-            raise ValueError(f"{n} anchors exceed the kernel's shared "
-                             f"memory")
-        dev = boxes.device
-        num = torch.empty(b, dtype=torch.int32, device=dev)
-        ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
-        os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
-        ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
-        per_label, side = per_label.contiguous(), side.contiguous()
-        rc = _launcher("launch_nms_argmax")(
-            boxes.data_ptr(), per_score.data_ptr(), per_label.data_ptr(),
-            side.data_ptr(), b, n, iou_threshold, score_threshold,
-            max_output, num.data_ptr(), ob.data_ptr(), os_.data_ptr(),
-            ol.data_ptr(), _build.stream_ptr())
-        nms_single_label.launches += 1
-        _build.check(_build.lib("nms"), rc, "nms_argmax_kernel")
-        out = (num, ob, os_, ol)
+        out = nms_argmax_kernel(boxes, scores, iou_threshold,
+                                score_threshold, max_output)
     if single:
         out = tuple(o[0] for o in out)
     return out
+
+
+def nms_argmax_kernel(boxes, scores, iou_threshold, score_threshold,
+                      max_output):
+    """Kernel I on CUDA tensors: boxes (B, N, 4) and scores (B, N, C) f32
+    contiguous -> the outputs of `nms_argmax_plain` on
+    `single_label_candidates(boxes, scores)`, which the kernel takes
+    itself (each anchor's best class, the class-band side).  Any number of
+    anchors is taken.  Counted on nms_single_label."""
+    if score_threshold < -1.0:
+        raise ValueError(f"kernel I takes score_threshold >= -1; got "
+                         f"{score_threshold}")
+    b, n, c = scores.shape
+    dev = boxes.device
+    num = torch.empty(b, dtype=torch.int32, device=dev)
+    ob = torch.empty(b, max_output, 4, dtype=torch.float32, device=dev)
+    os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
+    ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
+    pool = torch.empty(b, n, dtype=torch.int64, device=dev)
+    rc = _launcher("launch_nms_argmax")(
+        boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
+        score_threshold, max_output, NMS_WINDOW, NMS_CHUNK, pool.data_ptr(),
+        num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
+        _build.stream_ptr())
+    nms_single_label.launches += 1
+    _build.check(_build.lib("nms"), rc, "nms_argmax_kernel (kernel I)")
+    return num, ob, os_, ol
 
 
 nms_single_label.launches = 0
