@@ -26,7 +26,9 @@ Phases (any failure exits non-zero):
      two GEMM shapes, C and D beside torch._int_mm (cuBLASLt int8, s32
      out) at theirs; D, E and F at head dims 48, 80 and 128 (zero-padded
      to the SDPA core's 64 and 128, and its largest), 12 heads, 8 x 197
-     tokens, bf16 and f32, within KERNEL_TOL, FLOAT_BF16_TOL and F32_TOL;
+     tokens, bf16 and f32, within KERNEL_TOL, FLOAT_BF16_TOL and F32_TOL,
+     and at head dims 192 and 256 (the SDPA core's wide form) with each
+     kernel's and its plain version's time;
      print, on a line of their own and labelled as not measured, the times
      of A-J before their redesign (J's five launches as `kernel_cost.py
      region` traced them) and the SDPA core's exponential floor;
@@ -116,10 +118,20 @@ Phases (any failure exits non-zero):
      the CPU copy's, a bar set by the CPU copy's own bf16 rounding noise
      against its f32 pipeline on the same frames plus the f32 legs'
      card-vs-CPU difference, which must itself lie within STAGE1_F32_CAP
-     (2^-11) of the inputs' largest magnitude.
-Each path of phases 5-8, 11 and 12 is driven with every launch count set to 0 just
-before it and read just after: its kernels must have launched, and the
-kernels of the other paths must not have.  Outputs must be finite,
+     (2^-11) of the inputs' largest magnitude;
+  14. the classifier's training on the card at ViT-B/8's full width, f32:
+     (a) one optimizer step against the same step on the CPU
+     (TRAIN_STEP_TOL), then the step at train_bs 1 timed (p50, p95,
+     steps/s, max_memory_allocated); (b) the service's retrain: 32 seeded
+     cover images ingested through POST /getImage fire retrain_fn (one
+     epoch, 32 steps, validation), `weights/class_engine` is loaded by the
+     port's Engine (F32_TOL against the trainer's logits) and served by
+     make_runner on phase 6's detector (A, B and E launched; its bf16
+     logits within FLOAT_BF16_TOL's elementwise bar of the trainer's),
+     with the retrain's wall seconds.
+Each path of phases 5-8, 11, 12 and 14 is driven with every launch count
+set to 0 just before it and read just after: its kernels must have
+launched, and the kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
 holds the kernels' JSON; the last line is the device JSON.  Nothing of JAX
 is imported.
@@ -133,6 +145,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # full JSON report and profiler table
@@ -811,23 +824,49 @@ def check_attention_b8(torch, ops, crops: int, f32_crops: int):
     return rows, f32_err, bf16_stats, calls
 
 
-# head dims the SDPA core does not run (48, 80: zero-padded to 64 and 128)
-# and its largest (128), 12 heads each
-PAD_HEAD_DIMS = (48, 80, 128)
+# head dims the SDPA core does not run (48, 80: zero-padded to 64 and 128),
+# its largest fast one (128) and two of its wide form (192, 256), 12 heads
+# each
+PAD_HEAD_DIMS = (48, 80, 128, 192, 256)
+WIDE_HEAD_DIMS = (192, 256)
 
 
 def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
-    """Phase 3: D, E and F at head dims 48, 80 and 128 (12 heads, `crops`
-    x `t` tokens), bf16 and f32, against their plain versions: D within
-    KERNEL_TOL, E and F within FLOAT_BF16_TOL at bf16 (with the f32
-    function) and F32_TOL at f32.  Returns the max errors."""
+    """Phase 3: D, E and F at head dims 48, 80, 128, 192 and 256 (12
+    heads, `crops` x `t` tokens), bf16 and f32, against their plain
+    versions: D within KERNEL_TOL, E and F within FLOAT_BF16_TOL at bf16
+    (with the f32 function) and F32_TOL at f32.  Returns the max errors
+    and, at the wide form's head dims (WIDE_HEAD_DIMS), each kernel's and
+    its plain version's time (CUDA events)."""
     from yolov8_vit_tpu_torch.ops.attention import (
         attn_block_i8_plain, flash_attention_plain,
         fused_attention_block_plain)
     from yolov8_vit_tpu_torch.ops.quant import quantize_weight
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(12)
-    heads, out = 12, {}
+    heads, out, wide = 12, {}, {}
+
+    def timed(name, hd, fn, plain):
+        """At the wide form's head dims: the kernel's and the plain
+        version's time, and the bound: x (and out) read / written once
+        and the weights read once in the activation dtype (int8 for D);
+        the QKV and proj products (8 m d^2; int8 for D) and the
+        attention's (4 crops heads t^2 hd) at the card's peak rates."""
+        if hd not in WIDE_HEAD_DIMS:
+            return
+        es = 2 if "bfloat16" in name else 4
+        peak = PEAK_BF16_FLOPS if es == 2 else PEAK_F32_FLOPS
+        d, m = heads * hd, crops * t
+        op_ms = 4 * crops * heads * t * t * hd / peak * 1e3
+        nbytes = 4 * m * d * es
+        if name[0] in "DE":
+            gemm_peak = PEAK_INT8_OPS if name[0] == "D" else peak
+            op_ms += 8 * m * d * d / gemm_peak * 1e3
+            nbytes = 2 * m * d * es + 4 * d * d * (1 if name[0] == "D" else es)
+        b_ms, by = _bound_ms(nbytes, op_ms)
+        wide[name] = {"ms": _time_ms(fn, 3), "plain_ms": _time_ms(plain, 3),
+                      "bound_ms": b_ms, "bound_by": by}
+
     for hd in PAD_HEAD_DIMS:
         d = heads * hd
         ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
@@ -849,6 +888,9 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
                 torch, f"D {name}", ops.fused_attention_block_i8(
                     *args, heads=heads),
                 attn_block_i8_plain(*args, heads=heads), KERNEL_TOL)
+            timed(f"D {name}", hd,
+                  lambda: ops.fused_attention_block_i8(*args, heads=heads),
+                  lambda: attn_block_i8_plain(*args, heads=heads))
             w = [(torch.randn(d, n, generator=g) * d ** -0.5).to(dev, dt)
                  for n in (3 * d, d)]
             b = [(0.02 * torch.randn(n, generator=g)).to(dev)
@@ -862,6 +904,9 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
                 F32_TOL if f32 else FLOAT_BF16_TOL,
                 None if f32 else fused_attention_block_plain(
                     *(a.float() for a in args), heads=heads))
+            timed(f"E {name}", hd,
+                  lambda: ops.fused_attention_block(*args, heads=heads),
+                  lambda: fused_attention_block_plain(*args, heads=heads))
             q, k, v = (torch.randn(crops, t, heads, hd, generator=g)
                        .to(dev, dt) for _ in range(3))
             out[f"F {name}"] = _close(
@@ -870,7 +915,9 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
                 F32_TOL if f32 else FLOAT_BF16_TOL,
                 None if f32 else flash_attention_plain(
                     q.float(), k.float(), v.float()))
-    return out
+            timed(f"F {name}", hd, lambda: ops.flash_attention(q, k, v),
+                  lambda: flash_attention_plain(q, k, v))
+    return out, wide
 
 
 def small_input_check(torch, quant: str) -> dict:
@@ -2301,6 +2348,340 @@ def service_phase(torch, ops, tree: dict, vit_spec, smi: str,
 
 
 
+# phase 14: one train step of ViT-B/8 on the card against the same step on
+# the CPU (the port's own CPU path; f32 on both, TF32 off).  The loss is
+# a mean over the batch of sums over 768-term f32 dot products taken in
+# another order: a relative 1e-4.  Each leaf's gradient within 1e-3 of
+# its largest |g|: backward sums (over tokens, over the batch) of the
+# same products in another order, through 12 blocks.  The stepped params
+# within 1e-6: lr (1e-4) times a gradient difference, plus the weight
+# decay and momentum arithmetic, which is the same on both sides.
+TRAIN_STEP_TOL = {"loss_rel": 1e-4, "grad_share": 1e-3, "param_abs": 1e-6}
+# phase 14 (b): the served classifier runs the trained params in bf16
+# (kernel E, bf16 GEMMs), the trainer's eval in f32.  FLOAT_BF16_TOL holds
+# one kernel against its plain version at the same rounding points; a
+# whole bf16 network against f32 differs by its own rounding (a 2-block
+# ViT at 224 pixels already by 1.6 % of its mean logit on the CPU), so the
+# bar is set by that noise, measured on the same crops: the same served
+# function on the CPU (plain versions, bf16) against the trainer's f32
+# logits.  Allowed: |served - f32| <= FLOAT_BF16_TOL's elementwise bar +
+# 2x the largest CPU bf16-vs-f32 difference, and the mean |served - f32|
+# <= 1.5x the CPU copy's mean plus 2^-9 of the mean |f32| logit.
+SERVED_BF16_BAR = {"max_x": 2.0, "mean_x": 1.5, "mean_rel": 2.0 ** -9}
+COVER_CLASSES = ("good", "broke", "lose", "uncovered", "circle")
+COVER_RGB = {"good": (200, 60, 50), "broke": (60, 200, 60),
+             "lose": (210, 200, 60), "uncovered": (50, 60, 210),
+             "circle": (60, 200, 210)}
+
+
+def _cover_image(np, rng, cls: str):
+    """A seeded 256 x 320 frame: sensor noise and one filled disk of the
+    class's colour; returns (RGB uint8, its VOC object)."""
+    h, w = 256, 320
+    img = np.clip(rng.normal(110, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+    r = int(rng.integers(40, 70))
+    cx, cy = (int(rng.integers(r, s - r)) for s in (w, h))
+    yy, xx = np.mgrid[:h, :w]
+    img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = COVER_RGB[cls]
+    return img, {"sort": cls, "xmin": cx - r, "ymin": cy - r,
+                 "xmax": cx + r, "ymax": cy + r}
+
+
+def train_step_check(torch, np, smi: str, steps: int = 20) -> dict:
+    """Phase 14 (a): ViT-B/8 (VIT_B8_224, CFG's defaults, params drawn
+    from cfg.seed) one optimizer step on a batch of 2 seeded 224 x 224
+    crops, on the card and on the CPU, within TRAIN_STEP_TOL; then the
+    train step at CFG's train_bs (1) timed with CUDA events a step and
+    profiled (device time by kernel, busy share of the p50 step), with
+    max_memory_allocated (the process's, earlier phases' runners
+    included), the allocation before the steps (those and this model's
+    params, gradients and momentum) and the steps' own peak above it."""
+    from yolov8_vit_tpu_torch.config import CFG
+    from yolov8_vit_tpu_torch.models.vit import VIT_B8_224
+    from yolov8_vit_tpu_torch.train.augment import eval_transform
+    from yolov8_vit_tpu_torch.train.schedule import cosine_anneal_schedule
+    from yolov8_vit_tpu_torch.train.vit_train import (ViTTrainer,
+                                                      make_train_step)
+    from yolov8_vit_tpu_torch.weights import module_tree
+    cfg = CFG()
+    rng = np.random.default_rng(14)
+    crops = np.stack([eval_transform(rng.integers(
+        0, 256, (int(h), int(w), 3), dtype=np.uint8))
+        for h, w in rng.integers(120, 400, (2, 2))])
+    onehot = np.eye(cfg.num_classes, dtype=np.float32)[
+        rng.integers(0, cfg.num_classes, 2)]
+    lr = cosine_anneal_schedule(0, cfg.epoch, cfg.lr)
+    t0 = time.perf_counter()
+    cpu_model, cpu_opt = ViTTrainer(cfg, VIT_B8_224, device="cpu").init()
+    card_model, card_opt = ViTTrainer(cfg, VIT_B8_224, device="cuda").init(
+        module_tree(cpu_model))
+    out = {"card": smi, "init_s": time.perf_counter() - t0, "lr": lr,
+           "params": sum(p.numel() for p in cpu_model.parameters())}
+    x, y = torch.from_numpy(crops), torch.from_numpy(onehot)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_c = make_train_step(cpu_model, cpu_opt)(x, y, lr)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    card_step = make_train_step(card_model, card_opt)
+    card_loss, card_c = card_step(x.cuda(), y.cuda(), lr)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_share, param_abs = 0.0, 0.0
+    for (name, pc), (_, pg) in zip(cpu_model.named_parameters(),
+                                   card_model.named_parameters()):
+        if not bool(torch.isfinite(pg.grad).all()):
+            raise AssertionError(f"train step: non-finite gradient of {name}")
+        gmax = float(pc.grad.abs().max())
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        if err > TRAIN_STEP_TOL["grad_share"] * gmax:
+            raise AssertionError(f"train step: gradient of {name} off by "
+                                 f"{err} of max |g| {gmax}")
+        grad_share = max(grad_share, err / gmax if gmax else 0.0)
+        param_abs = max(param_abs, float((pg.detach().cpu() - pc.detach())
+                                         .abs().max()))
+    out.update(loss_card=float(card_loss), loss_cpu=float(cpu_loss),
+               loss_rel=loss_rel, grad_share=grad_share, param_abs=param_abs,
+               correct=[int(card_c), int(cpu_c)])
+    if not np.isfinite(float(card_loss)) or loss_rel > TRAIN_STEP_TOL[
+            "loss_rel"] or param_abs > TRAIN_STEP_TOL["param_abs"]:
+        raise AssertionError(f"train step card vs CPU: {out} beyond "
+                             f"{TRAIN_STEP_TOL}")
+    del cpu_model, cpu_opt
+
+    x1, y1 = x[:cfg.train_bs].cuda(), y[:cfg.train_bs].cuda()
+    for _ in range(3):
+        card_step(x1, y1, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    losses = []
+    for a, b in ev:
+        a.record()
+        losses.append(card_step(x1, y1, lr)[0])
+        b.record()
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in ev])
+    if not all(np.isfinite(float(v)) for v in losses):
+        raise AssertionError("train step: a non-finite loss")
+    out.update(batch=cfg.train_bs, steps=steps,
+               step_ms_p50=float(np.percentile(ms, 50)),
+               step_ms_p95=float(np.percentile(ms, 95)),
+               steps_per_s=float(1e3 / ms.mean()),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, allocated_before_gb=base / 1e9,
+               step_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    # where the step's time goes: device time by kernel over two steps
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof = profile_step(torch, types.SimpleNamespace(
+        _fn=lambda _: card_step(x1, y1, lr)), None,
+        os.path.join(OUT_DIR, "profile_train_step.txt"))
+    out["profile"] = dict(prof, busy_share=prof["device_us_per_step"]
+                          / (out["step_ms_p50"] * 1e3))
+    del card_model, card_opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def retrain_phase(torch, ops, np, smi: str, det_tree: dict, frames,
+                  n_covers: int = 32, n_valid: int = 10) -> dict:
+    """Phase 14 (b): the service's retrain on the card at ViT-B/8's full
+    width.  The service (`build_default_service`, enable_retrain, on the
+    card) behind `make_http_server` on 127.0.0.1 ingests `n_covers`
+    seeded cover images (.bmp, five classes) with their VOC objects
+    through POST /getImage after /getConfig set standard = n_covers and
+    class_config.epoch = 1; the last label fires retrain_fn, which trains
+    one epoch at train_bs 1 (one step an ingested cover: .bmp files stay
+    in train/new, a train path) and validates on `n_valid` seeded covers
+    of the workdir's train/2024/valid_xmls.  Then weights/class_engine
+    must exist; the port's Engine on the card loads it and gives the
+    trainer's eval logits (the training form's f32 forward on the
+    exported params) within F32_TOL; make_runner serves it in bf16 on
+    phase 6's detector with kernels A, B and E launched (launch counts),
+    and its classifier's logits on the validation crops lie within
+    SERVED_BF16_BAR of the trainer's.  An exception on the retrain thread
+    fails the phase."""
+    import functools
+    import http.server
+    import threading
+    from yolov8_vit_tpu_torch.config import CFG, DetectConfig
+    from yolov8_vit_tpu_torch.data.voc import generate_annotation
+    from yolov8_vit_tpu_torch.models.vit import VIT_B8_224, ViTClassifier
+    from yolov8_vit_tpu_torch.runtime.engine import Engine
+    from yolov8_vit_tpu_torch.serve import imageio
+    from yolov8_vit_tpu_torch.serve.app import build_default_service
+    from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
+    from yolov8_vit_tpu_torch.serve.sse import HUB
+    from yolov8_vit_tpu_torch.train.classify import _with_workdir
+    from yolov8_vit_tpu_torch.train.dataset import build_dataloaders
+    from yolov8_vit_tpu_torch.train.vit_train import ViTTrainer
+    from yolov8_vit_tpu_torch.weights import (load_tree, read_engine,
+                                              save_engine)
+    cfg = CFG()
+    root = os.path.join(ENGINE_DIR, "retrain")
+    shutil.rmtree(root, ignore_errors=True)
+    work, covers = os.path.join(root, "work"), os.path.join(root, "covers")
+    valid_dir = os.path.join(work, "train", "2024", "valid_xmls")
+    os.makedirs(covers)
+    os.makedirs(valid_dir)
+    rng = np.random.default_rng(41)
+    labels = []
+    for i in range(n_covers):
+        img, obj = _cover_image(np, rng, COVER_CLASSES[i % 5])
+        name = f"cover{i:02d}.bmp"
+        imageio.imwrite(os.path.join(covers, name), imageio.bgr2rgb(img))
+        labels.append((name, obj))
+    for i in range(n_valid):
+        img, obj = _cover_image(np, rng, COVER_CLASSES[i % 5])
+        name = f"valid{i:02d}.bmp"
+        imageio.imwrite(os.path.join(valid_dir, name), imageio.bgr2rgb(img))
+        generate_annotation("", name, name, [obj], save_dir=valid_dir,
+                            image_size=(img.shape[1], img.shape[0]))
+    out: dict = {"card": smi, "covers": n_covers, "valid": n_valid}
+    servers, errors = [], []
+    old_hook = threading.excepthook
+
+    def hook(args):
+        errors.append(args)
+        old_hook(args)
+
+    def serve(httpd):
+        servers.append(httpd)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    threading.excepthook = hook
+    events = HUB.subscribe()
+    engine_dir = os.path.join(work, "weights", "class_engine")
+    try:
+        files = serve(http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Quiet, directory=covers)))
+        svc = build_default_service(work, enable_retrain=True,
+                                    device="cuda")
+        base = serve(svc.make_http_server("127.0.0.1", 0))
+        if _http_json(base + "/getConfig", {
+                "standard": n_covers, "class_config": {"epoch": 1}}) != \
+                {"state": "修改成功"}:
+            raise AssertionError("/getConfig refused the retrain settings")
+        for name, obj in labels:
+            ans = _http_json(base + "/getImage",
+                             {"imageUrl": f"{files}/{name}",
+                              "objects": [obj]})
+            if "url" not in ans:
+                raise AssertionError(f"/getImage {name}: {ans}")
+        t0 = time.perf_counter()
+        while not (os.path.exists(os.path.join(engine_dir, "params.msgpack"))
+                   and svc.training_epochs_left == 0):
+            if errors:
+                raise AssertionError(f"retrain thread raised: "
+                                     f"{errors[0].exc_value!r}")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("retrain: no engine after 600 s")
+            time.sleep(0.05)
+        out["retrain_s"] = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"retrain thread raised: "
+                                 f"{errors[0].exc_value!r}")
+        logs = []
+        while not events.empty():
+            logs.append(events.get_nowait())
+        log_text = " ".join(logs)
+        for msg in ("Starting training", "Epoch 1:",
+                    "Retraining process complete"):
+            if msg not in log_text:
+                raise AssertionError(f"retrain: no {msg!r} on the SSE hub")
+        meta, tree = read_engine(engine_dir)
+        if meta["kind"] != "classify" or meta["vit_spec"] != \
+                dataclasses.asdict(VIT_B8_224):
+            raise AssertionError(f"retrain: engine meta {meta}")
+
+        _, valid = build_dataloaders(_with_workdir(cfg, work))
+        imgs = np.concatenate([b[0] for b in valid.batches(cfg.valid_bs)])
+        x = torch.from_numpy(imgs).cuda()
+        trained, _ = ViTTrainer(cfg, VIT_B8_224, device="cuda").init(
+            tree["params"])
+        with torch.no_grad():
+            ref = trained(x)
+        del trained
+        if not bool(torch.isfinite(ref).all()):
+            raise AssertionError("retrain: non-finite eval logits")
+        eng = Engine(engine_dir, device="cuda")
+        out["engine_max_abs_err"] = _close(torch, "retrained Engine",
+                                           eng(x), ref, F32_TOL)
+        del eng
+        det_dir = save_engine(os.path.join(root, "detect"), "detect",
+                              det_tree,
+                              {"detect_cfg": dataclasses.asdict(
+                                  DetectConfig())})
+        runner = make_runner(det_dir, engine_dir, classify_budget=BUDGET,
+                             device="cuda")
+        runner.max_batch = BATCH
+        pipe = runner.pipeline
+        if (pipe.vit_spec.attn_impl, pipe.dtype) != ("fused",
+                                                     torch.bfloat16):
+            raise AssertionError(f"retrained engine served as "
+                                 f"{pipe.vit_spec} in {pipe.dtype}")
+        runner.run_device_batches([frames])                  # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        recs = runner.run_device_batches([frames])[0]
+        torch.cuda.synchronize()
+        out["launches"] = _path_launches(
+            ops, "retrained_b8", A_B + ("fused_attention_block",),
+            C_D + ("flash_attention",))
+        for r in recs:
+            for k in ("boxes", "det_scores", "cls_scores"):
+                if not np.isfinite(r[k]).all():
+                    raise AssertionError(f"retrained_b8: non-finite {k}")
+        out["kept"] = sum(int(r["final_valid"].sum()) for r in recs)
+        if out["kept"] == 0:
+            raise AssertionError("retrained_b8: no detection classified")
+        t0 = time.perf_counter()
+        cpu_vit = load_tree(ViTClassifier(pipe.vit_spec, pipe.num_classes,
+                                          dtype=torch.bfloat16),
+                            tree["params"])
+        with torch.no_grad():
+            served = pipe.vit(x.to(torch.bfloat16)).float()
+            cpu_bf16 = cpu_vit(x.cpu().to(torch.bfloat16)).float()
+        out["cpu_bf16_s"] = time.perf_counter() - t0
+        ref = ref.cpu()
+        err = (served.cpu() - ref).abs()
+        noise = (cpu_bf16 - ref).abs()
+        lim = (FLOAT_BF16_TOL["atol"] + FLOAT_BF16_TOL["rtol"] * ref.abs()
+               + SERVED_BF16_BAR["max_x"] * float(noise.max()))
+        out.update(served_max_abs_err=float(err.max()),
+                   served_mean_abs_err=float(err.mean()),
+                   cpu_bf16_max_abs_err=float(noise.max()),
+                   cpu_bf16_mean_abs_err=float(noise.mean()),
+                   mean_abs_logit=float(ref.abs().mean()),
+                   served_argmax_agree=int((served.cpu().argmax(-1)
+                                            == ref.argmax(-1)).sum()),
+                   cpu_bf16_argmax_agree=int((cpu_bf16.argmax(-1)
+                                              == ref.argmax(-1)).sum()))
+        if not bool(torch.isfinite(served).all()) \
+                or bool((err > lim).any()) \
+                or float(err.mean()) > SERVED_BF16_BAR["mean_x"] * float(
+                    noise.mean()) + SERVED_BF16_BAR["mean_rel"] * float(
+                    ref.abs().mean()):
+            raise AssertionError(f"retrained engine served in bf16 against "
+                                 f"the trainer's f32 logits beyond "
+                                 f"SERVED_BF16_BAR: {out}")
+        del runner, pipe
+        torch.cuda.empty_cache()
+    finally:
+        threading.excepthook = old_hook
+        HUB.unsubscribe(events)
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -2369,9 +2750,12 @@ def main() -> int:
           "region) "
           f"and the SDPA core's exponential floor: {json.dumps(reference)}",
           flush=True)
-    head_dims = check_head_dims(torch, ops)
+    head_dims, wide_ms = check_head_dims(torch, ops)
     print(f"D, E, F at head dims {PAD_HEAD_DIMS} (KERNEL_TOL, "
           f"FLOAT_BF16_TOL, F32_TOL): {json.dumps(head_dims)}", flush=True)
+    print(f"D, E, F at head dims {WIDE_HEAD_DIMS} (the SDPA core's wide "
+          f"form; 8 x 197 tokens, 12 heads), ms on {smi}: "
+          f"{json.dumps(wide_ms)}", flush=True)
     print(f"f32 checks (F32_TOL {F32_TOL}): {json.dumps(f32_err)}")
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
           f"{json.dumps(bf16_stats)}")
@@ -2444,6 +2828,24 @@ def main() -> int:
           f"{service['host_request_s']} s", flush=True)
     _report(f"service ({time.perf_counter() - t0:.1f} s)", service)
 
+    t0 = time.perf_counter()
+    train = {"step": train_step_check(torch, np, smi)}
+    train["retrain"] = retrain_phase(torch, ops, np, smi, b8_tree["det"],
+                                     paths["vit_b8_float"]["frames"])
+    paths["retrained_b8"] = {"launches": train["retrain"]["launches"]}
+    st, rt = train["step"], train["retrain"]
+    print(f"train on {smi}: ViT-B/8 f32 step at batch {st['batch']} p50 "
+          f"{st['step_ms_p50']:.2f} ms p95 {st['step_ms_p95']:.2f} ms, "
+          f"{st['steps_per_s']:.2f} steps/s, max_memory_allocated "
+          f"{st['max_memory_allocated_gb']:.2f} GB ({st['step_peak_gb']:.2f}"
+          f" GB above the {st['allocated_before_gb']:.2f} GB held before "
+          f"the steps); service retrain "
+          f"({rt['covers']} steps + validation of {rt['valid']} crops, "
+          f"export) {rt['retrain_s']:.1f} s wall", flush=True)
+    _report("train step card vs CPU", st)
+    _report(f"retrain through the service "
+            f"({time.perf_counter() - t0:.1f} s)", rt)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
     b16_frames = paths["vit_b16_w8a"].pop("frames")
@@ -2487,7 +2889,8 @@ def main() -> int:
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "kept_set": kept,
-                   "public_ops": gj, "service": service,
+                   "public_ops": gj, "service": service, "train": train,
+                   "head_dims_wide_ms": wide_ms,
                    "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,
                    "total_s": time.perf_counter() - t_all}, f, indent=1)

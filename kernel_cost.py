@@ -4,6 +4,7 @@ compared in one call.  From the repository root:
     python3 kernel_cost.py nms --save PATH
     python3 kernel_cost.py nms --load PATH [--tree OTHER_TREE]
     python3 kernel_cost.py region [--tree OTHER_TREE]
+    python3 kernel_cost.py steps [--tree OTHER_TREE]
 
 Both build chip_smoke.py phase 5's pipeline (YOLOv8-s at 640 x 640 and
 ViT-B/16 w8a, bf16, seed-0 weights with the head fitted to cover scenes)
@@ -35,6 +36,12 @@ the weights prepared once outside the timed calls ("prepared") and from
 the params dict ("dict"), each with the share of its outputs that differ
 from the plain version's.  The port's cuDNN modules on the same input
 (`det.b2(det.b1(x))`) are timed beside them.
+
+`steps`: the serving steps of chip_smoke.py phases 5-7 (this tree's
+phase functions on the timed tree's package): the ViT-B/16 w8a slice's
+and the float ViT-B/8 slice's fused step (`BatchRunner._fn` on 32
+frames, CUDA events over 20 calls after the phase's own drive), and the
+ViT-B/8 w8a, w8 and dynamic engines' steps (phase 7, 3 calls each).
 
 Prints one JSON line, last, with the card's name and power limit (any
 profile chip_smoke.profile_parts retakes is printed before it).  Needs a
@@ -204,6 +211,23 @@ def nms(args) -> dict:
     return res
 
 
+# ---- steps -----------------------------------------------------------------
+def steps(args) -> dict:
+    from yolov8_vit_tpu_torch import ops
+    out = {}
+    for name, slice_fn in (("vit_b16_w8a", cs.b16_w8a_slice),
+                           ("vit_b8_float", cs.b8_float_slice)):
+        rep, runner, tree = slice_fn(torch, ops, 1)
+        frames = rep.pop("frames")
+        out[name] = cs._time_ms(lambda: runner._fn(frames), 20)
+        del runner
+        torch.cuda.empty_cache()
+    runs, _ = cs.b8_engine_runs(torch, ops, tree["det"],
+                                tree["vit"]["params"], frames)
+    out.update({k: v["fused_step_ms"] for k, v in runs.items()})
+    return out
+
+
 # ---- region ----------------------------------------------------------------
 def region(args) -> dict:
     from yolov8_vit_tpu_torch.ops import fused_region as fr
@@ -239,7 +263,8 @@ def main() -> int:
     mode.add_argument("--save", metavar="PATH")
     mode.add_argument("--load", metavar="PATH")
     p_region = sub.add_parser("region", help="kernel J")
-    for p in (p_nms, p_region):
+    p_steps = sub.add_parser("steps", help="the serving steps of phases 5-7")
+    for p in (p_nms, p_region, p_steps):
         p.add_argument("--tree", metavar="DIR",
                        help="the tree whose package is timed")
     args = ap.parse_args()
@@ -249,8 +274,8 @@ def main() -> int:
         print("kernel_cost: no CUDA device", file=sys.stderr)
         return 2
     import yolov8_vit_tpu_torch as pkg
-    res = {"package": os.path.dirname(pkg.__file__),
-           **(nms(args) if args.kernels == "nms" else region(args))}
+    run = {"nms": nms, "region": region, "steps": steps}[args.kernels]
+    res = {"package": os.path.dirname(pkg.__file__), **run(args)}
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

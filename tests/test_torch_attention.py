@@ -246,8 +246,9 @@ def test_kernel_sdpa_arithmetic_meets_float_bf16_tol(form):
 
 
 # head dims the SDPA core does not run (8, 48, 80: zero-padded to 16, 64,
-# 128) and its largest, 128; two heads each
-_PAD_HEAD_DIMS = [8, 48, 80, 128]
+# 128; 136 above 128: to 144) and ones it runs as they are (128, 192);
+# two heads each
+_PAD_HEAD_DIMS = [8, 48, 80, 128, 136, 192]
 
 
 @pytest.mark.parametrize("hd", _PAD_HEAD_DIMS)
@@ -261,7 +262,7 @@ def test_kernel_e_head_padding_matches_unpadded_and_jax(hd):
     x, lns, lnb, wq, bq, wp, bp = _block_inputs(
         np.random.default_rng(hd), b, t, d)
     hdp = attention._padded_head_dim(torch.float32, d, heads, "E")
-    assert hdp == {8: 16, 48: 64, 80: 128, 128: 128}[hd]
+    assert hdp == {8: 16, 48: 64, 80: 128, 128: 128, 136: 144, 192: 192}[hd]
     wqp, bqp, wpp = attention._head_padded_float(_t(wq), _t(bq), _t(wp),
                                                  heads, hdp)
     assert wqp.shape == (d, 3 * heads * hdp) and wpp.shape == (heads * hdp,
@@ -309,8 +310,15 @@ def test_kernel_f_head_padding_matches_unpadded_and_jax(hd):
 
 
 def test_head_dims_above_128_refused():
-    """The SDPA core's largest head dim is 128: a CUDA call above it raises
-    before any launch (checked here without a card)."""
-    with pytest.raises(ValueError, match="head dim up to 128"):
-        attention._padded_head_dim(torch.bfloat16, 2 * 136, 2, "kernel E")
+    """Head dims above 128 are no longer refused: the SDPA core's wide form
+    takes them, each head zero-padded to a multiple of 16.  What the
+    kernels still refuse raises before any launch (checked here without a
+    card): another dtype, D not a multiple of heads or of 8."""
+    for hd, hdp in ((136, 144), (192, 192), (256, 256), (132, 144)):
+        assert attention._padded_head_dim(torch.bfloat16, 2 * hd, 2,
+                                          "kernel E") == hdp
     assert attention._padded_head_dim(torch.bfloat16, 2 * 128, 2, "F") == 128
+    for dtype, d, heads in ((torch.float16, 256, 2), (torch.float32, 264, 5),
+                            (torch.float32, 260, 2)):
+        with pytest.raises(ValueError, match="multiple of 8 and of heads"):
+            attention._padded_head_dim(dtype, d, heads, "kernel E")

@@ -302,10 +302,12 @@ def test_kernel_f_matches_plain(dev, dtype, shape):
            f32_ref=flash_attention_plain(*qkv.float().unbind(2)))
 
 
-# head dims the SDPA core does not run (48, 80: zero-padded to 64, 128) and
-# its largest, 128 (D, E and F take every head dim up to it)
+# head dims the SDPA core does not run (48, 80: zero-padded to 64, 128),
+# its largest fast one, 128, and the wide form's (136 padded to 144, 192,
+# 256)
 _PAD_SHAPES = [(2, 65, 96, 2), (2, 130, 160, 2), (3, 129, 256, 2),
-               (2, 785, 384, 3)]
+               (2, 785, 384, 3), (2, 33, 272, 2), (2, 97, 384, 2),
+               (2, 197, 512, 2)]
 
 
 @pytest.mark.parametrize("shape", _PAD_SHAPES)
@@ -337,9 +339,16 @@ def test_kernels_d_e_f_at_head_dims_48_80_128(dev, dtype, shape):
 
 
 def test_head_dim_above_128_raises(dev):
-    q = torch.zeros(1, 8, 2, 136, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim up to 128"):
-        ops.flash_attention(q, q, q)
+    """Head dims above 128 no longer raise: F at 136 (padded to 144) runs
+    the wide form and matches its plain version; fp16 still raises."""
+    g = _gen(22)
+    q, k, v = (torch.randn(1, 40, 2, 136, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    _close(ops.flash_attention(q, k, v), flash_attention_plain(q, k, v),
+           torch.bfloat16,
+           f32_ref=flash_attention_plain(q.float(), k.float(), v.float()))
+    with pytest.raises(ValueError, match="multiple of 8 and of heads"):
+        ops.flash_attention(q.half(), k.half(), v.half())
 
 
 # ---- G-J ---------------------------------------------------------------------

@@ -298,11 +298,11 @@ def test_kernel_c_h_padding_matches_jax(m, d, hid):
 
 
 @pytest.mark.parametrize("b,t,d,heads", [(2, 9, 40, 2), (2, 7, 24, 3),
-                                         (1, 5, 100, 2)])
+                                         (1, 5, 100, 2), (1, 5, 272, 2)])
 def test_kernel_d_padding_matches_jax(b, t, d, heads):
-    """Kernel D where the head dim (20, 8, 50) is not one the SDPA core
-    runs: each head of q, k, v zero-padded to 32, 16 or 64 columns and D to
-    a multiple of 16 (`_head_padded_i8`), through the plain arithmetic with
+    """Kernel D where the head dim (20, 8, 50, 136) is not one the SDPA
+    core runs: each head of q, k, v zero-padded to 32, 16, 64 or 144
+    columns and D to a multiple of 16 (`_head_padded_i8`), through the plain arithmetic with
     the real head dim's scale: the padded q, k, v columns are zero, and the
     result meets JAX's kernel D within its 1e-5."""
     rng = np.random.default_rng(d + heads)
@@ -311,7 +311,7 @@ def test_kernel_d_padding_matches_jax(b, t, d, heads):
     _, wq, sq, bq = _weights(rng, d, 3 * d)
     _, wp, sp, bp = _weights(rng, d, d)
     hd = d // heads
-    hdp = min(h for h in attention.SDPA_HEAD_DIMS if h >= hd)
+    hdp = attention._core_head_dim(hd)
     wqt, sqp, bqp, wpt, spp, bpp = attention._head_padded_i8(
         *map(_t, (wq, sq, bq, wp, sp, bp)), heads, hdp)
     dp, dh = wpt.shape

@@ -277,12 +277,39 @@ def test_config_and_pages_same_as_jax(engines, tmp_path):
     assert p.config.read()["num"] == 0
 
 
-def test_retrain_not_ported_raises_when_it_fires(tmp_path):
+def test_retrain_writes_class_engine_when_it_fires(tmp_path, monkeypatch):
+    """enable_retrain wires train/classify.py::retrain: the retrain hook on
+    the CPU (a tiny ViT, one epoch from the service config) delivers the
+    ingested labels, trains, writes weights/class_engine, which the port's
+    Engine loads, and publishes its log lines on the SSE hub."""
+    from test_train_pipeline import _make_dataset
+    from yolov8_vit_tpu_torch.serve.sse import HUB
+    from yolov8_vit_tpu_torch.train import classify
+    monkeypatch.setattr(classify, "_spec_for",
+                        lambda cfg: ViTSpec(**SPEC))
+    _make_dataset(str(tmp_path / "train/new"), n_per_class=3)
     svc = app.build_default_service(str(tmp_path), enable_retrain=True,
                                     device="cpu")
     assert svc.runner is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    svc.config.update(class_config={"epoch": 1})
+    q = HUB.subscribe()
+    try:
         svc._call_retrain(True)
+    finally:
+        HUB.unsubscribe(q)
+    events = []
+    while not q.empty():
+        events.append(q.get_nowait())
+    logs = " ".join(events)
+    for msg in ("Starting data delivery", "Starting training",
+                "Epoch 1:", "Exporting engine", "Retraining process complete"):
+        assert msg in logs, msg
+    out = tmp_path / "weights/class_engine"
+    eng = Engine(str(out), device="cpu")
+    assert eng.kind == "classify" and eng.vit_spec == ViTSpec(**SPEC)
+    logits = eng(torch.zeros(1, 224, 224, 3))
+    assert logits.shape == (1, 5) and bool(torch.isfinite(logits).all())
+    assert set(json.load(open(tmp_path / "train/result.json"))) == {"1"}
     assert _call(svc, "POST", "/", {"urls": [{"a": "http://127.0.0.1:9/x"}]}
                  )[0] == "200 OK"
 

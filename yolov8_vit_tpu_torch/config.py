@@ -1,9 +1,9 @@
-"""Configuration types of the two-stage pipeline and the inspection
-service (PyTorch port).
+"""Configuration types of the two-stage pipeline, the classifier's
+training and the inspection service (PyTorch port).
 
-The port's own copy of the detection config, the class set and the
-JSON-backed service config of `yolov8_vit_tpu/config.py`, so nothing here
-imports the JAX package.  Field names and defaults are identical: engine
+The port's own copy of the classifier training config, the detection
+config, the class set and the JSON-backed service config of
+`yolov8_vit_tpu/config.py`, so nothing here imports the JAX package.  Field names and defaults are identical: engine
 `meta.json` files and service `config.json` files written by the JAX
 package load unchanged.
 """
@@ -13,6 +13,7 @@ import dataclasses
 import json
 import os
 import threading
+from typing import Sequence
 
 # 'loss' is an alias of 'lose'
 CLASS_NAMES: tuple[str, ...] = ("good", "broke", "lose", "uncovered", "circle")
@@ -24,6 +25,33 @@ LABEL_MAPPING: dict[str, int] = {
     "uncovered": 3,
     "circle": 4,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class CFG:
+    """Classifier training hyper-parameters: SGD with momentum .9 and
+    weight decay 1e-3 at a per-epoch cosine-annealed learning rate
+    (train/vit_train.py); `pretrained` is the engine dir a retrain
+    resumes from, the paths are the VOC XML dirs of the train and valid
+    sets, relative to the service's workdir."""
+
+    seed: int = 42
+    img_size: tuple[int, int] = (224, 224)
+    train_bs: int = 1
+    num_classes: int = 5
+    epoch: int = 10
+    lr: float = 1e-4
+    model_name: str = "vit_base_patch8_224.augreg_in21k"
+    pretrained: str = "weights/vit_best"
+    train_path: Sequence[str] = ("train/new_train", "train/circle",
+                                 "train/2024/train_xmls", "train/new")
+    valid_path: Sequence[str] = ("train/2024/valid_xmls", "train/new_valid")
+    momentum: float = 0.9
+    weight_decay: float = 1e-3
+
+    @property
+    def valid_bs(self) -> int:
+        return self.train_bs * 2
 
 
 @dataclasses.dataclass(frozen=True)

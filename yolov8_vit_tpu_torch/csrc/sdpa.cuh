@@ -459,10 +459,165 @@ int launch_sdpa_hd(const SdpaArgs& a, int dtype, int nb, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The core over nb images; head dims 16, 32, 64 and 128 (every ViT the
-// package defines has 64; the small test shapes use 16 and 32; the
-// wrappers zero-pad any other head dim up to 128 to the next of these).
-// Keys at or past min(t_real, t) are masked.
+// ---- head dims above 128: CUDA cores, any head dim ------------------------
+// A simple form, not a fast one: a CTA of 4 warps holds 16 query rows of
+// one (image, head); keys go in tiles of 32 and features in chunks of
+// 128, so shared memory does not grow with the head dim.  The scores of a
+// key tile are summed over the feature chunks in order (one f32 FMA a
+// feature, as the f32 core), pass 1 takes each row's max and sum of
+// exponentials, and pass 2 produces the output one 128-feature chunk of V
+// at a time, recomputing the scores for each chunk.  Rounding as the
+// other forms: q * scale rounded to T where prescale, p = exp(s - m) / l
+// in f32 then rounded to T, P.V summed in f32 and rounded to T.  Warp w
+// owns rows w, w + 4, w + 8 and w + 12; lane j owns key j of a tile and
+// output columns j, j + 32, j + 64 and j + 96 of a chunk.
+constexpr int kWideRows = 16, kWideKeys = 32, kWideChunk = 128;
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128) sdpa_wide_kernel(SdpaArgs a, int hd) {
+  __shared__ float qs[kWideRows][kWideChunk];
+  __shared__ float ks[kWideKeys][kWideChunk + 1];
+  __shared__ float vs[kWideKeys][kWideChunk];
+  __shared__ float ps[kWideRows][kWideKeys];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, img = blockIdx.z;
+  const int q0 = blockIdx.x * kWideRows;
+  const size_t base = static_cast<size_t>(img) * a.bstride
+      + static_cast<size_t>(h) * hd;
+  const T* q = static_cast<const T*>(a.q) + base;
+  const T* k = static_cast<const T*>(a.k) + base;
+  const T* v = static_cast<const T*>(a.v) + base;
+
+  // s[u]: score of row warp + 4u against key k0 + lane
+  auto scores = [&](int k0, float* s) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u] = 0.f;
+    for (int c0 = 0; c0 < hd; c0 += kWideChunk) {
+      const int cw = min(kWideChunk, hd - c0);
+      __syncthreads();
+      for (int i = threadIdx.x; i < kWideRows * cw; i += blockDim.x) {
+        const int r = i / cw, c = i - r * cw;
+        float x = 0.f;
+        if (q0 + r < a.t) {
+          x = load_f(q + static_cast<size_t>(q0 + r) * a.ld + c0 + c);
+          if (a.prescale) x = round_to(x * a.scale, T());
+        }
+        qs[r][c] = x;
+      }
+      for (int i = threadIdx.x; i < kWideKeys * cw; i += blockDim.x) {
+        const int j = i / cw, c = i - j * cw;
+        ks[j][c] = k0 + j < a.t
+            ? load_f(k + static_cast<size_t>(k0 + j) * a.ld + c0 + c) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* qr = qs[warp + 4 * u];
+        float acc = s[u];
+        for (int c = 0; c < cw; ++c) acc = __fmaf_rn(qr[c], ks[lane][c], acc);
+        s[u] = acc;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (!a.prescale) s[u] = s[u] * a.scale;
+      if (k0 + lane >= a.t_real) s[u] = -INFINITY;
+    }
+  };
+
+  float m[4], l[4], s[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    m[u] = -INFINITY;
+    l[u] = 0.f;
+  }
+  for (int k0 = 0; k0 < a.t; k0 += kWideKeys) {              // pass 1
+    scores(k0, s);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float mn = fmaxf(m[u], warp_max(s[u]));
+      const float sum = warp_sum(mn == -INFINITY ? 0.f : expf(s[u] - mn));
+      l[u] = (m[u] == -INFINITY ? 0.f : l[u] * expf(m[u] - mn)) + sum;
+      m[u] = mn;
+    }
+  }
+
+  T* out = static_cast<T*>(a.o);
+  for (int o0 = 0; o0 < hd; o0 += kWideChunk) {              // pass 2
+    const int ow = min(kWideChunk, hd - o0);
+    float o[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[u][c] = 0.f;
+    for (int k0 = 0; k0 < a.t; k0 += kWideKeys) {
+      scores(k0, s);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        ps[warp + 4 * u][lane] =
+            round_to(__fdiv_rn(expf(s[u] - m[u]), l[u]), T());
+      for (int i = threadIdx.x; i < kWideKeys * ow; i += blockDim.x) {
+        const int j = i / ow, c = i - j * ow;
+        vs[j][c] = k0 + j < a.t
+            ? load_f(v + static_cast<size_t>(k0 + j) * a.ld + o0 + c) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int c = lane + 32 * cc;
+          if (c < ow) {
+            float acc = o[u][cc];
+            for (int j = 0; j < kWideKeys; ++j)
+              acc = __fmaf_rn(ps[warp + 4 * u][j], vs[j][c], acc);
+            o[u][cc] = acc;
+          }
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int row = q0 + warp + 4 * u;
+      if (row >= a.t) continue;
+      T* orow = out + ((static_cast<size_t>(img) * a.t + row) * a.heads + h)
+          * hd + o0;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int c = lane + 32 * cc;
+        if (c < ow) store_f(orow + c, o[u][cc]);
+      }
+    }
+  }
+}
+
+int launch_sdpa_wide(const SdpaArgs& a, int dtype, int nb, int hd,
+                     cudaStream_t st) {
+  dim3 grid((a.t + kWideRows - 1) / kWideRows, a.heads, nb);
+  if (dtype == kBF16)
+    sdpa_wide_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(a, hd);
+  else
+    sdpa_wide_kernel<float><<<grid, 128, 0, st>>>(a, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The core over nb images.  Head dims 16, 32, 64 and 128 run the forms
+// above (every ViT the package defines has 64; the small test shapes use
+// 16 and 32; the wrappers zero-pad any other head dim up to 128 to the
+// next of these); any head dim above 128 runs sdpa_wide_kernel.  Keys at
+// or past min(t_real, t) are masked.
 int launch_sdpa(SdpaArgs a, int dtype, int nb, int hd, cudaStream_t st) {
   if (nb == 0 || a.t == 0) return 0;
   if (dtype != kBF16 && dtype != kF32)
@@ -473,7 +628,9 @@ int launch_sdpa(SdpaArgs a, int dtype, int nb, int hd, cudaStream_t st) {
     case 32: return launch_sdpa_hd<32>(a, dtype, nb, st);
     case 64: return launch_sdpa_hd<64>(a, dtype, nb, st);
     case 128: return launch_sdpa_hd<128>(a, dtype, nb, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (hd > 128) return launch_sdpa_wide(a, dtype, nb, hd, st);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -18,6 +18,11 @@ transposed for the CUDA kernels and the int8 patch-embed fold are
 non-persistent buffers made by
 `ViTClassifier.prepare`, once per load (`weights.load_tree` calls it), not
 per forward.
+
+`ViTClassifier.train_form` turns an f32 float model into its training
+form (train/vit_train.py): every tree leaf an nn.Parameter that the
+forward reads itself, so autograd reaches each leaf the JAX trainer
+trains; the serving forms keep their derived buffers.
 """
 from __future__ import annotations
 
@@ -82,6 +87,8 @@ VIT_B16_224 = ViTSpec(patch=16)
 class Dense(nn.Module):
     """flax nn.Dense params: kernel (in, out), bias (out,)."""
 
+    live = False     # training form: the forward reads kernel and bias
+
     def __init__(self, fin: int, fout: int):
         super().__init__()
         self.register_buffer("kernel", torch.zeros(fin, fout))
@@ -101,6 +108,8 @@ class Dense(nn.Module):
 
     def forward(self, x):
         """flax Dense(dtype=x.dtype): operands and bias in x's dtype."""
+        if self.live:
+            return x @ self.kernel + self.bias
         return x @ self.kernel_c + self.bias_c
 
 
@@ -253,6 +262,8 @@ class PatchEmbed(nn.Module):
     (patch, patch, 3, dim): the port patchifies as a matmul over patch
     pixels in (row, column, channel) order, which is the conv."""
 
+    live = False     # training form: NHWC images read kernel and bias
+
     def __init__(self, patch: int, dim: int):
         super().__init__()
         self.register_buffer("kernel", torch.zeros(patch, patch, 3, dim))
@@ -293,6 +304,8 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """Backbone + timm-style classifier head."""
 
+    live = False     # training form: the forward reads cls_token, pos_embed
+
     def __init__(self, spec: ViTSpec):
         super().__init__()
         self.spec = spec
@@ -329,6 +342,8 @@ class ViT(nn.Module):
         f32 = torch.float32
         b = img.shape[0]
         if img.dim() == 4 and img.shape[-2:] == (s.patch, 3 * s.patch):
+            if pe.live:
+                raise ValueError("the training form takes NHWC images")
             if img.dtype == torch.int8:
                 w, bias = pe.fold_w, pe.fold_b
             else:
@@ -343,6 +358,8 @@ class ViT(nn.Module):
         gh, gw = img.shape[1] // p, img.shape[2] // p
         patches = img[:, :gh * p, :gw * p].reshape(b, gh, p, gw, p, 3) \
             .permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * 3)
+        if pe.live:
+            return patches @ pe.kernel.reshape(-1, s.dim) + pe.bias
         return patches.to(dtype) @ pe.w_conv + pe.b_conv
 
     def forward(self, img: torch.Tensor, dtype) -> torch.Tensor:
@@ -350,7 +367,9 @@ class ViT(nn.Module):
         s = self.spec
         x = self.embed(img, dtype)
         b = x.shape[0]
-        x = torch.cat([self.cls_c.expand(b, 1, s.dim), x], dim=1) + self.pos_c
+        cls, pos = (self.cls_token, self.pos_embed) if self.live \
+            else (self.cls_c, self.pos_c)
+        x = torch.cat([cls.expand(b, 1, s.dim), x], dim=1) + pos
         t_real = None
         if s.pad_tokens and s.pad_tokens > s.tokens:
             x = F.pad(x, (0, 0, 0, s.pad_tokens - s.tokens))
@@ -375,10 +394,37 @@ class ViTClassifier(nn.Module):
 
     def prepare(self) -> None:
         """Make every submodule's derived buffers for `self.dtype`: at
-        construction and after each load (weights.load_tree)."""
+        construction and after each load (weights.load_tree).  The
+        training form has none."""
         for m in self.modules():
-            if hasattr(m, "derive"):
+            if hasattr(m, "derive") and not getattr(m, "live", False):
                 m.derive(self.dtype)
+
+    def train_form(self) -> "ViTClassifier":
+        """This model's training form, in place: each tree leaf (every
+        kernel, bias, LayerNorm scale and bias, the patch embedding, the
+        cls token and the position embedding) becomes an nn.Parameter, and
+        the forward reads those tensors themselves, so autograd reaches
+        every leaf that the JAX trainer updates.  The derived buffers are
+        dropped: after an optimizer step nothing is stale, and
+        `weights.module_tree` gives the trained leaves.  Only the model
+        the trainer builds: f32, quant "none", attn_impl "xla"."""
+        s = self.model.spec
+        if self.dtype != torch.float32 or s.quant != "none" \
+                or s.attn_impl != "xla":
+            raise ValueError(f"the training form is f32 with quant 'none' "
+                             f"and attn_impl 'xla'; got {self.dtype}, "
+                             f"{s.quant!r}, {s.attn_impl!r}")
+        for mod in self.modules():
+            for name in list(mod._buffers):
+                t = mod._buffers.pop(name)
+                if name not in mod._non_persistent_buffers_set:
+                    mod.register_parameter(
+                        name, nn.Parameter(t.to(torch.float32)))
+            mod._non_persistent_buffers_set.clear()
+            if hasattr(mod, "live"):
+                mod.live = True
+        return self
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.model(img, self.dtype))

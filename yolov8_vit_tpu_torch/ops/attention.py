@@ -10,12 +10,13 @@
 On the card each is a chain around the key-tiled SDPA core of
 csrc/sdpa.cuh (csrc/attention.cu; the source notes give the bounds on the
 H100 and the design: at bf16 the core and E's GEMMs run on wgmma with TMA
-copies); CPU tensors run the plain versions below.  The SDPA rounds as
-the TPU kernels do.  D and E (`sdpa_heads_plain`): q * hd^-0.5
-rounded to the dtype, scores and softmax in f32, probabilities rounded to
-the dtype, P.V accumulated in f32 and rounded to the dtype.  F
-(`flash_attention_plain`): f32 scores times the f32 scale, probabilities
-rounded to v's dtype, output in q's dtype.
+copies; head dims above 128 run a simple CUDA-core form that streams the
+features in 128-wide chunks); CPU tensors run the plain versions below.
+The SDPA rounds as the TPU kernels do.  D and E (`sdpa_heads_plain`):
+q * hd^-0.5 rounded to the dtype, scores and softmax in f32,
+probabilities rounded to the dtype, P.V accumulated in f32 and rounded to
+the dtype.  F (`flash_attention_plain`): f32 scores times the f32 scale,
+probabilities rounded to v's dtype, output in q's dtype.
 """
 from __future__ import annotations
 
@@ -29,9 +30,20 @@ from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
                                             quant_dense_pre, round_up16,
                                             transposed_i8)
 
-# head dims the CUDA SDPA core is built for; the wrappers zero-pad any
-# other head dim up to the last of them to the next one
+# head dims the CUDA SDPA core's fast forms are built for; the wrappers
+# zero-pad any other head dim up to the last of them to the next one, and
+# a head dim above it to a multiple of 16 (`_core_head_dim`)
 SDPA_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _core_head_dim(hd: int) -> int:
+    """The head dim the SDPA core runs for a real head dim hd >= 1: the
+    least of SDPA_HEAD_DIMS >= hd, or above 128 hd rounded up to a
+    multiple of 16 (the wide form takes any head dim; 16 keeps D's int8
+    GEMM widths and TMA's 16-byte rows)."""
+    if hd > SDPA_HEAD_DIMS[-1]:
+        return round_up16(hd)
+    return min(h for h in SDPA_HEAD_DIMS if h >= hd)
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, p_dtype, out_dtype):
@@ -61,21 +73,14 @@ def sdpa_heads_plain(qkv: torch.Tensor, heads: int,
 
 
 def _padded_head_dim(dtype, d: int, heads: int, what: str) -> int:
-    """The head dim the SDPA core runs for D = heads x hd: the least of
-    SDPA_HEAD_DIMS >= hd (the wrapper zero-pads each head to it).  Raises
+    """The head dim the SDPA core runs for D = heads x hd
+    (`_core_head_dim`; the wrapper zero-pads each head to it).  Raises
     where the kernel takes no such input: another dtype, D not a multiple
-    of heads (and of 8, for TMA's 16-byte rows), hd above 128."""
-    if not heads or d % heads:
-        hdp = None
-    else:
-        hdp = min((h for h in SDPA_HEAD_DIMS if h >= d // heads),
-                  default=None)
-    if dtype not in DTYPE_CODES or d % 8 or hdp is None:
+    of heads (and of 8, for TMA's 16-byte rows)."""
+    if dtype not in DTYPE_CODES or d % 8 or not heads or d % heads:
         raise ValueError(f"{what} takes f32/bf16 with D a multiple of 8 and "
-                         f"of heads, and a head dim up to "
-                         f"{SDPA_HEAD_DIMS[-1]}; got {dtype}, D={d}, "
-                         f"heads={heads}")
-    return hdp
+                         f"of heads; got {dtype}, D={d}, heads={heads}")
+    return _core_head_dim(d // heads)
 
 
 def _per_head(v: torch.Tensor, parts: int, heads: int,
@@ -139,9 +144,9 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     (wqkv_t, wproj_t: their (out, in) copies, made once by a caller that
     runs many forwards; without them the wrapper transposes per call);
     scales, biases and LN params f32.  t_real < T masks key columns
-    >= t_real.  Any D with a head dim up to 128: a head dim the SDPA core
-    does not run (SDPA_HEAD_DIMS) is zero-padded to the next one, the
-    weights laid out so per call (`_head_padded_i8`).  CUDA tensors launch
+    >= t_real.  Any D and head dim: a head dim the SDPA core does not run
+    is zero-padded to the one it runs (`_core_head_dim`), the weights laid
+    out so per call (`_head_padded_i8`).  CUDA tensors launch
     kernel D; CPU tensors run the plain version."""
     b, t, d = x.shape
     f32 = torch.float32
@@ -154,11 +159,10 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
                                    heads=heads, ln_eps=ln_eps, t_real=t_real)
     dt = x.dtype
     hd = d // heads if heads and d % heads == 0 else 0
-    hdp = min((h for h in SDPA_HEAD_DIMS if h >= hd), default=None)
-    if dt not in DTYPE_CODES or not hd or hdp is None:
-        raise ValueError(f"kernel D takes f32/bf16 with a head dim up to "
-                         f"{SDPA_HEAD_DIMS[-1]}; got {dt}, D={d}, "
-                         f"heads={heads}")
+    if dt not in DTYPE_CODES or not hd:
+        raise ValueError(f"kernel D takes f32/bf16 with D a multiple of "
+                         f"heads; got {dt}, D={d}, heads={heads}")
+    hdp = _core_head_dim(hd)
     if hdp == hd:                           # D = heads x hdp: a multiple of 16
         wqt = transposed_i8(wqkv_i8, wqkv_t)
         wpt = transposed_i8(wproj_i8, wproj_t)
@@ -238,10 +242,10 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
     them cast once (models/vit.py caches the cast per load); at bf16 the
     kernel reads them through TMA, which needs 16-byte aligned bases (a
     view off that raises).  Biases and LN params are used in f32.  t_real
-    < T masks key columns >= t_real.  Any D (a multiple of 8) with a head
-    dim up to 128: a head dim the SDPA core does not run is zero-padded to
-    the next one, each head's QKV columns and proj rows laid out so per
-    call (as D's).  CUDA tensors launch kernel E; CPU tensors run the
+    < T masks key columns >= t_real.  Any D (a multiple of 8) and head
+    dim: a head dim the SDPA core does not run is zero-padded to the one it
+    runs (`_core_head_dim`), each head's QKV columns and proj rows laid out
+    so per call (as D's).  CUDA tensors launch kernel E; CPU tensors run the
     plain version."""
     b, t, d = x.shape
     dt = x.dtype
@@ -315,9 +319,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     (B, T, 3, H, D) qkv, read in place; a view the kernel cannot read so
     (`_strided_ok`: TMA's 16-byte rules, heads adjacent, rows apart), or
     views with different row or image strides, are copied contiguous
-    first.  A head dim the SDPA core does not run (SDPA_HEAD_DIMS; up to
-    128) is zero-padded to the next one: q, k and v copied into padded
-    buffers, the output sliced (the scale stays the real hd^-0.5).  CUDA
+    first.  A head dim the SDPA core does not run is zero-padded to the one
+    it runs (`_core_head_dim`): q, k and v copied into padded buffers, the
+    output sliced (the scale stays the real hd^-0.5).  CUDA
     tensors launch kernel F; CPU tensors run the plain version."""
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v)

@@ -452,17 +452,18 @@ def build_default_service(workdir: str = ".",
                           enable_retrain: bool = True,
                           fused: bool = False, device="cuda"):
     """Wire InspectionService to real engines on `device` (the card unless
-    the caller asks for "cpu") and to the classifier retrain loop, which
-    fires when the label counter reaches `standard`.
+    the caller asks for "cpu") and, with enable_retrain, to the classifier
+    retrain loop (train/classify.py::retrain), which fires when the label
+    counter reaches `standard` and on /trainNow: it trains on the same
+    `device` for the service config's class_config.epoch epochs (the
+    /getConfig knob; None means CFG's default), publishes its log lines
+    on the /stream hub and writes `weights/class_engine` under
+    `workdir`.
 
     fused=False runs the host route (serve/infer.py: handles arbitrary
     mixed image sizes, two Engines); fused=True routes POST / through the
     BatchRunner (resolution-bucketed, the whole pipeline one device
-    program).  A merged "two_stage" engine always takes the fused route.
-
-    The training loop is not ported yet (ROADMAP.md queue 1, item 11:
-    `train/`): with enable_retrain=True the service is built with a
-    retrain_fn that raises NotImplementedError when it fires."""
+    program).  A merged "two_stage" engine always takes the fused route."""
     device = _build.resolve_device(device)
     runner = None
     if detect_engine_path and os.path.isdir(detect_engine_path):
@@ -497,10 +498,19 @@ def build_default_service(workdir: str = ".",
     retrain_fn = None
     if enable_retrain:
         def retrain_fn(log, epochs=None):
-            raise NotImplementedError(
-                "the classifier retrain loop (train/classify.py) is not "
-                "ported to PyTorch yet: ROADMAP.md queue 1, item 11 "
-                "(train/); build the service with enable_retrain=False")
+            import dataclasses
+            from yolov8_vit_tpu_torch.config import CFG
+            from yolov8_vit_tpu_torch.train.classify import retrain
+
+            def sse_log(msg):
+                print(msg)
+                HUB.publish({"message": str(msg)}, type_="log")
+
+            # `is None`, not falsy: epoch 0 is a zero-epoch run
+            cfg = CFG() if epochs is None else dataclasses.replace(
+                CFG(), epoch=int(epochs))
+            retrain(log=log, cfg=cfg, workdir=workdir, log_fn=sse_log,
+                    device=device)
 
     from yolov8_vit_tpu_torch.serve.geocode import location2lalo
     return InspectionService(workdir=workdir, runner=runner,

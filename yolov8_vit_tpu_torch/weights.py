@@ -245,11 +245,13 @@ def _leaves(tree, prefix=()):
 _KEPT_FLOAT = (torch.float32, torch.bfloat16)
 
 
-def _tree_buffers(mod: nn.Module):
-    """`mod`'s own parameter buffers; the derived (non-persistent) ones are
-    not in the tree."""
-    return [(n, b) for n, b in mod.named_buffers(recurse=False)
-            if n not in mod._non_persistent_buffers_set]
+def _tree_leaves(mod: nn.Module):
+    """`mod`'s own tree leaves: its parameter buffers (the derived,
+    non-persistent ones are not in the tree) and, in a model's training
+    form (`ViTClassifier.train_form`), its nn.Parameters."""
+    return list(mod.named_parameters(recurse=False)) + [
+        (n, b) for n, b in mod.named_buffers(recurse=False)
+        if n not in mod._non_persistent_buffers_set]
 
 
 def load_tree(module: nn.Module, tree: dict) -> nn.Module:
@@ -257,13 +259,14 @@ def load_tree(module: nn.Module, tree: dict) -> nn.Module:
     then let the module make its derived buffers (`module.prepare()`,
     where it has one).  A floating buffer takes the leaf's dtype when that
     is f32 or bf16 (stored dtypes are kept, as JAX keeps them); other
-    leaves are cast to the buffer's dtype.  Strict: a missing or extra
+    leaves, and every leaf loaded into an nn.Parameter, are cast to the
+    buffer's or parameter's dtype.  Strict: a missing or extra
     leaf, or a shape mismatch, raises."""
     flat = {".".join(p): v for p, v in _leaves(tree)}
     used = set()
     for mod_name, mod in module.named_modules():
         hwio = getattr(mod, "hwio_leaves", ())
-        for name, buf in _tree_buffers(mod):
+        for name, buf in _tree_leaves(mod):
             key = f"{mod_name}.{name}" if mod_name else name
             if key not in flat:
                 raise KeyError(f"parameter tree lacks {key.replace('.', '/')}")
@@ -274,7 +277,8 @@ def load_tree(module: nn.Module, tree: dict) -> nn.Module:
                 raise ValueError(f"{key}: tree shape {tuple(t.shape)} vs "
                                  f"module {tuple(buf.shape)}")
             if buf.is_floating_point() and t.dtype in _KEPT_FLOAT \
-                    and t.dtype != buf.dtype:
+                    and t.dtype != buf.dtype \
+                    and not isinstance(buf, nn.Parameter):
                 mod._buffers[name] = t.to(buf.device, copy=True)
             else:
                 with torch.no_grad():
@@ -290,11 +294,11 @@ def load_tree(module: nn.Module, tree: dict) -> nn.Module:
 
 
 def module_tree(module: nn.Module) -> dict:
-    """`module`'s buffers as a flax-layout tree of CPU tensors."""
+    """`module`'s tree leaves as a flax-layout tree of CPU tensors."""
     tree: dict = {}
     for mod_name, mod in module.named_modules():
         hwio = getattr(mod, "hwio_leaves", ())
-        for name, buf in _tree_buffers(mod):
+        for name, buf in _tree_leaves(mod):
             t = buf.detach().cpu().clone()
             if name in hwio:
                 t = t.permute(2, 3, 1, 0).contiguous()
