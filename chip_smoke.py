@@ -128,8 +128,21 @@ Phases (any failure exits non-zero):
      port's Engine (F32_TOL against the trainer's logits) and served by
      make_runner on phase 6's detector (A, B and E launched; its bf16
      logits within FLOAT_BF16_TOL's elementwise bar of the trainer's),
-     with the retrain's wall seconds.
-Each path of phases 5-8, 11, 12 and 14 is driven with every launch count
+     with the retrain's wall seconds;
+  15. the detector's training on the card, YOLOv8-s at 640 x 640, f32,
+     every trainer call with cuDNN's TF32 switch at PyTorch's default
+     (on), so the trainer must hold f32 itself: (a) one optimizer step at
+     batch 2 against the same step on the CPU (TRAIN_STEP_TOL; the
+     largest differences printed); (b) the host's assembly of a batch of
+     16 (mosaic, HSV, affine), then the step at batch 16 timed (p50, p95,
+     steps/s, img/s, max_memory_allocated) and profiled (busy share);
+     (c) `yolo_retrain` on 64 seeded .bmp street frames with VOC XML,
+     resuming from phase 5's fitted detector (mAP50 and mAP50-95 before
+     and after, wall seconds; kernel A launched in validation and none
+     of B-J), its engine loaded by the port's Engine and served by
+     make_runner with phase 5's ViT-B/16 w8a classify engine on phase 5's
+     frames (A-D launched).
+Each path of phases 5-8, 11, 12, 14 and 15 is driven with every launch count
 set to 0 just before it and read just after: its kernels must have
 launched, and the kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
@@ -138,6 +151,7 @@ is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -846,12 +860,14 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
     g = torch.Generator().manual_seed(12)
     heads, out, wide = 12, {}, {}
 
-    def timed(name, hd, fn, plain):
+    def timed(name, hd, fn, plain, lib=None):
         """At the wide form's head dims: the kernel's and the plain
-        version's time, and the bound: x (and out) read / written once
-        and the weights read once in the activation dtype (int8 for D);
-        the QKV and proj products (8 m d^2; int8 for D) and the
-        attention's (4 crops heads t^2 hd) at the card's peak rates."""
+        version's time, `lib`'s (the one PyTorch call that computes the
+        same function, where there is one: SDPA for F), and the bound: x
+        (and out) read / written once and the weights read once in the
+        activation dtype (int8 for D); the QKV and proj products (8 m d^2;
+        int8 for D) and the attention's (4 crops heads t^2 hd) at the
+        card's peak rates."""
         if hd not in WIDE_HEAD_DIMS:
             return
         es = 2 if "bfloat16" in name else 4
@@ -865,6 +881,7 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
             nbytes = 2 * m * d * es + 4 * d * d * (1 if name[0] == "D" else es)
         b_ms, by = _bound_ms(nbytes, op_ms)
         wide[name] = {"ms": _time_ms(fn, 3), "plain_ms": _time_ms(plain, 3),
+                      "library_ms": None if lib is None else _time_ms(lib, 3),
                       "bound_ms": b_ms, "bound_by": by}
 
     for hd in PAD_HEAD_DIMS:
@@ -915,8 +932,11 @@ def check_head_dims(torch, ops, crops: int = 8, t: int = 197) -> dict:
                 F32_TOL if f32 else FLOAT_BF16_TOL,
                 None if f32 else flash_attention_plain(
                     q.float(), k.float(), v.float()))
+            qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
             timed(f"F {name}", hd, lambda: ops.flash_attention(q, k, v),
-                  lambda: flash_attention_plain(q, k, v))
+                  lambda: flash_attention_plain(q, k, v),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qh, kh, vh))
     return out, wide
 
 
@@ -1542,11 +1562,31 @@ def _silu_table(torch, fr, dev) -> dict:
     return r
 
 
+def _region_modules(torch, params: dict, c1: int, c2: int, dev):
+    """The port's cuDNN modules of the b1 + b2 region (ConvBlock(c1, c2,
+    3, 2) and C2f(c2, c2, 1, shortcut)) holding `params` (the region's
+    HWIO tree, as `region_params` gives it), bf16 activations."""
+    from yolov8_vit_tpu_torch.models.yolov8 import C2f, ConvBlock
+    b1 = ConvBlock(c1, c2, 3, 2)
+    b2 = C2f(c2, c2, 1, True)
+    for mod, key in ((b1, "b1"), (b2.cv1, "cv1"), (b2.m0.cv1, "m0_cv1"),
+                     (b2.m0.cv2, "m0_cv2"), (b2.cv2, "cv2")):
+        conv = params[key]["conv"]
+        mod.conv.kernel = conv["kernel"].permute(3, 2, 0, 1).float() \
+            .contiguous()
+        mod.conv.bias = conv["bias"].float()
+    b1, b2 = b1.to(dev), b2.to(dev)
+    for m in (*b1.modules(), *b2.modules()):
+        if hasattr(m, "derive"):
+            m.derive(torch.bfloat16)
+    return b1, b2
+
+
 def _region_wide(torch, ops, fr, dev, c1: int, c2: int) -> dict:
     """Kernel J's five-launch form (widths the fused kernel cannot hold) on
     8 frames of a 320 x 320 x c1 input, seeded weights, prepared once:
-    held within REGION_TOL of the plain version, timed beside it and its
-    bound."""
+    held within REGION_TOL of the plain version, timed beside it, its
+    bound and the port's cuDNN modules on the same input and weights."""
     g = torch.Generator(device=dev).manual_seed(c1)
     c = c2 // 2
 
@@ -1568,6 +1608,12 @@ def _region_wide(torch, ops, fr, dev, c1: int, c2: int) -> dict:
     r = _region_err(torch, got, fr.region_b1b2_plain(x, params))
     r["ms"] = _time_ms(lambda: ops.fused_b1b2(x, prep), 10)
     r["plain_ms"] = _time_ms(lambda: fr.region_b1b2_plain(x, params), 3)
+    b1, b2 = _region_modules(torch, params, c1, c2, dev)
+    x_nchw = x.permute(0, 3, 1, 2)
+    lib = b2(b1(x_nchw)).permute(0, 2, 3, 1)
+    r["max_abs_diff_vs_modules"] = float((got.float() - lib.float())
+                                         .abs().max())
+    r["library_ms"] = _time_ms(lambda: b2(b1(x_nchw)), 10)
     r["bound_ms"], r["bound_by"] = _region_bound(x, got)
     return r
 
@@ -2682,6 +2728,300 @@ def retrain_phase(torch, ops, np, smi: str, det_tree: dict, frames,
     return out
 
 
+# phase 15: the detector's training, YOLOv8-s at 640 x 640 in f32 (JAX's
+# train() default), run with cuDNN's TF32 switch at PyTorch's default (on):
+# the trainer must hold full f32 itself, backward included.  (a) holds one
+# step at batch 2 on the card against the same step on the CPU within
+# TRAIN_STEP_TOL; (b) times the step at batch 16; (c) runs yolo_retrain on
+# DET_RETRAIN_FRAMES street frames and serves the engine it writes.
+DET_TRAIN_BATCH = 16            # ultralytics' default batch
+DET_RETRAIN_FRAMES = 64
+
+
+@contextlib.contextmanager
+def _tf32_default(torch):
+    """cuDNN's TF32 switch at PyTorch's default (True) around trainer
+    calls, restored after; fails if a trainer call left it changed."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+        if torch.backends.cudnn.allow_tf32 is not True:
+            raise AssertionError("a trainer call left cuDNN's TF32 switch "
+                                 "changed")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _street_workdir(np, root: str, n: int) -> str:
+    """A workdir whose train/new holds `n` seeded 640 x 640 street frames
+    (.bmp; planted covers, utils/densify.make_cover_scenes, about 1.5 a
+    frame, some frames without one) with their VOC XML, every cover a
+    "good" box."""
+    from yolov8_vit_tpu_torch.data.voc import generate_annotation
+    from yolov8_vit_tpu_torch.serve import imageio
+    from yolov8_vit_tpu_torch.utils.densify import make_cover_scenes
+    new = os.path.join(root, "train", "new")
+    os.makedirs(new)
+    imgs, covers = make_cover_scenes(np.random.default_rng(15), n,
+                                     (640, 640), lam=1.5)
+    for i, (img, cs) in enumerate(zip(imgs, covers)):
+        name = f"street{i:03d}.bmp"
+        imageio.imwrite(os.path.join(new, name), imageio.bgr2rgb(img))
+        objs = [{"sort": "good", "xmin": max(cx - r, 0),
+                 "ymin": max(cy - r, 0), "xmax": min(cx + r, 640),
+                 "ymax": min(cy + r, 640)} for cx, cy, r in cs]
+        generate_annotation("", name, name, objs, save_dir=new,
+                            image_size=(640, 640))
+    return root
+
+
+def _clipped_grads(opt, named: dict) -> dict:
+    """{name: gradient} as the SGD update reads it (after the clip at
+    norm 10), captured by a pre-hook of the step."""
+    grads: dict = {}
+    opt.sgd.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.detach().clone() for n, p in named.items()}))
+    return grads
+
+
+def detector_train_phase(torch, ops, np, smi: str, tree: dict, vit_spec,
+                         frames, steps: int = 20) -> dict:
+    """Phase 15: the detector's trainer on the card, YOLOv8-s at 640 x 640,
+    f32, every trainer call with cuDNN's TF32 switch at PyTorch's default.
+
+    (a) one optimizer step of the seeded training form at batch 2 (the
+    first two images of a mosaic batch of the workdir's frames) on the
+    card and on the CPU: loss, each leaf's clipped gradient and the
+    stepped params within TRAIN_STEP_TOL.  The optimizer is train()'s
+    (lr0 = lrf = 1e-4, 100 warmup steps) at the end of its warmup, where
+    every group steps at lr0, the rate TRAIN_STEP_TOL's param bar
+    assumes; within warmup the bias group steps at up to 0.1, 1000x lr0,
+    and so moves its params by 1000x the same gradient difference (the
+    loss and the gradients do not depend on the step count); (b) the host's assembly of one batch of
+    DET_TRAIN_BATCH (mosaic, HSV, affine), then the step at that batch
+    timed with CUDA events (p50, p95, steps/s, img/s), its
+    max_memory_allocated and a profile (device time by kernel, busy share
+    of the p50 step); (c) `yolo_retrain(workdir, DetectConfig("s"),
+    epochs=1, batch=DET_TRAIN_BATCH)` resuming from phase 5's fitted
+    detector (weights/detect_engine), validation before and after
+    launching kernel A and none of B-J; the engine it writes loaded by the
+    port's Engine and served by make_runner with phase 5's ViT-B/16 w8a
+    classify engine (`tree`, `vit_spec`) on phase 5's frames, A-D
+    launched."""
+    import random
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.data.voc import xml2txt
+    from yolov8_vit_tpu_torch.runtime.engine import Engine
+    from yolov8_vit_tpu_torch.serve.batch_runner import make_runner
+    from yolov8_vit_tpu_torch.train import yolo_train as yt
+    from yolov8_vit_tpu_torch.weights import read_engine, save_engine
+    cfg = DetectConfig(variant="s")
+    hw = cfg.input_size
+    root = os.path.join(ENGINE_DIR, "detector_train")
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {"card": smi, "frames": DET_RETRAIN_FRAMES}
+    try:
+        work = _street_workdir(np, os.path.join(root, "work"),
+                               DET_RETRAIN_FRAMES)
+        fold = os.path.join(root, "fold_a")
+        xml2txt(os.path.join(work, "train", "new"), fold,
+                rng=random.Random(15))
+        ds = yt.YoloDataset(fold, "train", hw[0])
+        t0 = time.perf_counter()
+        batch = next(ds.batches(DET_TRAIN_BATCH, augment=True, seed=0))
+        out["host_batch_s"] = time.perf_counter() - t0
+        out["host_batch_images"] = DET_TRAIN_BATCH
+        spe = max(len(ds) // DET_TRAIN_BATCH, 1)
+
+        # ---- (a) one step, card against CPU ---------------------------
+        two = [torch.from_numpy(a[:2]) for a in batch]
+
+        def one_step(device, count: int):
+            """A fresh seeded trainer's step at optimizer count `count`:
+            (step fn, loss, clipped gradients, stepped params; on the
+            CPU)."""
+            model = yt.build_train_model(cfg, None, device)
+            named = dict(model.named_parameters())
+            opt = yt.make_yolo_optimizer(named, 1e-4, 1.0, 1, spe, 100)
+            opt.count = count
+            grads = _clipped_grads(opt, named)
+            step = yt.make_yolo_train_step(model, opt, hw, cfg.reg_max,
+                                           cfg.strides)
+            with _tf32_default(torch):
+                loss, _ = step(*(a.to(device) for a in two))
+            return (step, float(loss), {n: g.cpu() for n, g in grads.items()},
+                    {n: p.detach().cpu() for n, p in named.items()})
+
+        def compare(ref, got) -> dict:
+            rep = {"loss_rel": abs(got[1] - ref[1]) / abs(ref[1]),
+                   "grad_share": 0.0, "param_abs": 0.0}
+            for name, gc in ref[2].items():
+                if not bool(torch.isfinite(got[2][name]).all()):
+                    raise AssertionError(f"detector step: non-finite "
+                                         f"gradient of {name}")
+                gmax = float(gc.abs().max())
+                share = float((got[2][name] - gc).abs().max()) / gmax \
+                    if gmax else 0.0
+                pa = float((got[3][name] - ref[3][name]).abs().max())
+                if share > rep["grad_share"]:
+                    rep["grad_share"], rep["worst_grad"] = share, name
+                if pa > rep["param_abs"]:
+                    rep["param_abs"], rep["worst_param"] = pa, name
+            return rep
+
+        t0 = time.perf_counter()
+        cpu = one_step("cpu", 100)                  # the end of the warmup
+        out["cpu_step_s"] = time.perf_counter() - t0
+        card = one_step("cuda", 100)
+        card_step = card[0]
+        a_rep = dict(compare(cpu, card), loss_card=card[1], loss_cpu=cpu[1])
+        out["step_check"] = a_rep
+        # not held to a bar, printed: the same step at the warmup's start
+        # (bias LR 0.1), and a trainer that leaves the backward's convs
+        # to the TF32 switch (what TRAIN_STEP_TOL's gradient bar catches)
+        out["warmup_start"] = compare(one_step("cpu", 0),
+                                      one_step("cuda", 0))
+        held = yt.f32_training
+        yt.f32_training = contextlib.nullcontext
+        try:
+            out["tf32_not_held"] = compare(cpu, one_step("cuda", 100))
+        finally:
+            yt.f32_training = held
+        out["params"] = sum(v.numel() for v in cpu[3].values())
+        del cpu
+        print(f"detector step card vs CPU (cuDNN TF32 switch on): loss "
+              f"{a_rep['loss_card']:.7g} vs {a_rep['loss_cpu']:.7g} "
+              f"(rel {a_rep['loss_rel']:.3g}), largest gradient difference "
+              f"{a_rep['grad_share']:.3g} of its leaf's max |g| "
+              f"({a_rep.get('worst_grad')}), largest param difference "
+              f"{a_rep['param_abs']:.3g} ({a_rep.get('worst_param')}); at "
+              f"the warmup's start (bias LR 0.1) params "
+              f"{out['warmup_start']['param_abs']:.3g} "
+              f"({out['warmup_start'].get('worst_param')}); a trainer "
+              f"leaving the backward to the TF32 switch: gradients "
+              f"{out['tf32_not_held']['grad_share']:.3g} "
+              f"({out['tf32_not_held'].get('worst_grad')})", flush=True)
+        if not np.isfinite(a_rep["loss_card"]) or \
+                a_rep["loss_rel"] > TRAIN_STEP_TOL["loss_rel"] or \
+                a_rep["grad_share"] > TRAIN_STEP_TOL["grad_share"] or \
+                a_rep["param_abs"] > TRAIN_STEP_TOL["param_abs"]:
+            raise AssertionError(f"detector step card vs CPU: {a_rep} "
+                                 f"beyond {TRAIN_STEP_TOL}")
+
+        # ---- (b) the step at batch DET_TRAIN_BATCH, timed -----------------
+        full = [torch.from_numpy(a).cuda() for a in batch]
+        with _tf32_default(torch):
+            for _ in range(3):
+                card_step(*full)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(steps)]
+            losses = []
+            for a, b in ev:
+                a.record()
+                losses.append(card_step(*full)[0])
+                b.record()
+            torch.cuda.synchronize()
+        ms = np.array([a.elapsed_time(b) for a, b in ev])
+        if not all(np.isfinite(float(v)) for v in losses):
+            raise AssertionError("detector step: a non-finite loss")
+        out.update(batch=DET_TRAIN_BATCH, steps=steps,
+                   step_ms_p50=float(np.percentile(ms, 50)),
+                   step_ms_p95=float(np.percentile(ms, 95)),
+                   steps_per_s=float(1e3 / ms.mean()),
+                   img_per_s=float(DET_TRAIN_BATCH * 1e3 / ms.mean()),
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9, allocated_before_gb=base / 1e9,
+                   step_peak_gb=(torch.cuda.max_memory_allocated() - base)
+                   / 1e9)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with _tf32_default(torch):
+            prof = profile_step(torch, types.SimpleNamespace(
+                _fn=lambda _: card_step(*full)), None,
+                os.path.join(OUT_DIR, "profile_detector_train_step.txt"))
+        out["profile"] = dict(prof, busy_share=prof["device_us_per_step"]
+                              / (out["step_ms_p50"] * 1e3))
+        del card, card_step, full
+        torch.cuda.empty_cache()
+
+        # ---- (c) the retrain end to end, then served ----------------------
+        det_dir = os.path.join(work, "weights", "detect_engine")
+        save_engine(det_dir, "detect", tree["det"],
+                    {"detect_cfg": dataclasses.asdict(DetectConfig())})
+        random.seed(15)                 # xml2txt's train / val draw
+        logs: list = []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _tf32_default(torch):
+            metrics = yt.yolo_retrain(work, cfg, epochs=1,
+                                      batch=DET_TRAIN_BATCH,
+                                      log_fn=logs.append, device="cuda")
+            torch.cuda.synchronize()
+        out["retrain_s"] = time.perf_counter() - t0
+        out["retrain_launches"] = _path_launches(
+            ops, "detector_retrain", ("efficient_nms_scan",),
+            ("area_sorted_nms",) + C_D + E_F)
+        for msg in ("resumed from", "epoch 1/1", "detect engine exported"):
+            if not any(msg in line for line in logs):
+                raise AssertionError(f"yolo_retrain: no {msg!r} in {logs}")
+        if set(metrics) != {"preval", "final"}:
+            raise AssertionError(f"yolo_retrain metrics: {metrics}")
+        out.update(
+            map50_before=metrics["preval"]["map50"],
+            map50_95_before=metrics["preval"]["map50_95"],
+            map50_after=metrics["final"]["map50"],
+            map50_95_after=metrics["final"]["map50_95"],
+            train_images=len(yt.YoloDataset(
+                os.path.join(work, "train/yolo/fold0"), "train")),
+            val_images=len(yt.YoloDataset(
+                os.path.join(work, "train/yolo/fold0"), "val")),
+            log=[line for line in logs if line.startswith("epoch")])
+        meta, _ = read_engine(det_dir)
+        want = json.loads(json.dumps(dataclasses.asdict(cfg)))
+        if meta["kind"] != "detect" or meta["detect_cfg"] != want:
+            raise AssertionError(f"retrained engine meta {meta}")
+        eng = Engine(det_dir, device="cuda")
+        x = frames[:8].permute(0, 3, 1, 2).float() / 255.0
+        num, boxes, scores, labels = eng(x)
+        if not (bool(torch.isfinite(boxes).all())
+                and bool(torch.isfinite(scores).all())) \
+                or tuple(boxes.shape) != (len(x), cfg.nms_topk, 4):
+            raise AssertionError(f"retrained engine: {tuple(boxes.shape)}")
+        out["engine_dets"] = int(num.sum())
+        del eng
+        cls_dir = save_engine(
+            os.path.join(root, "classify"), "classify", tree["vit"],
+            {"vit_spec": dataclasses.asdict(vit_spec), "num_classes": 5})
+        runner = make_runner(det_dir, cls_dir, classify_budget=BUDGET,
+                             device="cuda")
+        runner.max_batch = BATCH
+        if runner.pipeline.vit_spec.quant != "w8a":
+            raise AssertionError(f"served {runner.pipeline.vit_spec}")
+        runner.run_device_batches([frames])                  # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        recs = runner.run_device_batches([frames])[0]
+        torch.cuda.synchronize()
+        out["served_launches"] = _path_launches(
+            ops, "retrained_detect_served", A_B + C_D, E_F)
+        for r in recs:
+            for k in ("boxes", "det_scores", "cls_scores"):
+                if not np.isfinite(r[k]).all():
+                    raise AssertionError(f"retrained detector served: "
+                                         f"non-finite {k}")
+        out["served_dets"] = sum(int(r["num_dets"]) for r in recs)
+        out["served_kept"] = sum(int(r["final_valid"].sum()) for r in recs)
+        del runner
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -2845,6 +3185,31 @@ def main() -> int:
     _report("train step card vs CPU", st)
     _report(f"retrain through the service "
             f"({time.perf_counter() - t0:.1f} s)", rt)
+
+    t0 = time.perf_counter()
+    det = train["detector"] = detector_train_phase(
+        torch, ops, np, smi, b16_tree, b16_runner.pipeline.vit_spec,
+        paths["vit_b16_w8a"]["frames"])
+    paths["detector_retrain"] = {"launches": det["retrain_launches"]}
+    paths["retrained_detect_served"] = {"launches": det["served_launches"]}
+    print(f"detector train on {smi}: YOLOv8-s f32 640 x 640 step at batch "
+          f"{det['batch']} p50 {det['step_ms_p50']:.2f} ms p95 "
+          f"{det['step_ms_p95']:.2f} ms, {det['steps_per_s']:.2f} steps/s, "
+          f"{det['img_per_s']:.1f} img/s, busy share "
+          f"{det['profile']['busy_share']:.2f}, max_memory_allocated "
+          f"{det['max_memory_allocated_gb']:.2f} GB "
+          f"({det['step_peak_gb']:.2f} GB above the "
+          f"{det['allocated_before_gb']:.2f} GB held before the steps); "
+          f"host batch assembly (mosaic, HSV, affine) "
+          f"{det['host_batch_s']:.2f} s for {det['host_batch_images']} "
+          f"images; yolo_retrain ({det['train_images']} train, "
+          f"{det['val_images']} val frames, 1 epoch) "
+          f"{det['retrain_s']:.1f} s wall, mAP50 {det['map50_before']:.4f} "
+          f"-> {det['map50_after']:.4f}, mAP50-95 "
+          f"{det['map50_95_before']:.4f} -> {det['map50_95_after']:.4f}; "
+          f"kernel A launched {det['retrain_launches']['efficient_nms_scan']}"
+          f" times in validation", flush=True)
+    _report(f"detector training ({time.perf_counter() - t0:.1f} s)", det)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}

@@ -677,3 +677,52 @@ def test_kernel_c_writes_no_row_past_m(dev, m):
     assert bool((buf[m:] == 7.0).all())
     _close(out, quant_mlp_ln_plain(x, lns, lnb, w1, s1, b1, w2, s2, b2),
            torch.bfloat16, int8=True)
+
+
+def test_detector_train_step_card_matches_cpu(dev):
+    """One optimizer step of the detector's training form (YOLOv8-n at 128
+    x 128, f32, batch 2, seeded params and gt) on the card and on the CPU,
+    with cuDNN's TF32 switch at PyTorch's default (on): the trainer holds
+    full f32 itself, backward included, and leaves the switch as it found
+    it.  Loss within 1e-4 relative, each leaf's clipped gradient within
+    1e-3 of its largest |g|, params within 1e-6 (chip_smoke.py's
+    TRAIN_STEP_TOL, whose param bar assumes lr0 = 1e-4: the step is taken
+    past the warmup, as phase 15's)."""
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.train import yolo_train as yt
+    cfg = DetectConfig(input_size=(128, 128), variant="n")
+    g = _gen(17)
+    imgs = torch.rand(2, 128, 128, 3, generator=g)
+    xy = torch.rand(2, 4, 2, generator=g) * 80
+    boxes = torch.cat([xy, xy + 12 + torch.rand(2, 4, 2, generator=g) * 36],
+                      -1)
+    labels = torch.randint(0, 5, (2, 4), generator=g, dtype=torch.int32)
+    mask = torch.tensor([[True, True, True, False], [True, False, False,
+                                                     False]])
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for device in ("cpu", dev):
+            model = yt.build_train_model(cfg, None, device)
+            named = dict(model.named_parameters())
+            opt = yt.make_yolo_optimizer(named, 1e-4, 1.0, 1, 1, 100)
+            opt.count = 100      # past the warmup: every group at lr0
+            grads = {}
+            opt.sgd.register_step_pre_hook(lambda *_: grads.update(
+                {n: p.grad.detach().cpu().clone() for n, p in named.items()}))
+            step = yt.make_yolo_train_step(model, opt, cfg.input_size)
+            loss, _ = step(*(t.to(device) for t in (imgs, boxes, labels,
+                                                    mask)))
+            out[str(device)] = (float(loss), grads,
+                                {n: p.detach().cpu() for n, p in
+                                 named.items()})
+            assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (cl, cg, cp), (gl, gg, gp) = out["cpu"], out[str(dev)]
+    assert abs(gl - cl) <= 1e-4 * abs(cl)
+    for n in cg:
+        assert float((gg[n] - cg[n]).abs().max()) <= \
+            1e-3 * float(cg[n].abs().max()), n
+        assert float((gp[n] - cp[n]).abs().max()) <= 1e-6, n

@@ -40,6 +40,7 @@ from yolov8_vit_tpu_torch.ops.attention import (flash_attention,
 from yolov8_vit_tpu_torch.ops.quant import (padded_t, quant_dense,
                                             quant_dense_fused,
                                             quant_mlp_ln_fused)
+from yolov8_vit_tpu_torch.weights import leaves_to_parameters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,16 +416,7 @@ class ViTClassifier(nn.Module):
             raise ValueError(f"the training form is f32 with quant 'none' "
                              f"and attn_impl 'xla'; got {self.dtype}, "
                              f"{s.quant!r}, {s.attn_impl!r}")
-        for mod in self.modules():
-            for name in list(mod._buffers):
-                t = mod._buffers.pop(name)
-                if name not in mod._non_persistent_buffers_set:
-                    mod.register_parameter(
-                        name, nn.Parameter(t.to(torch.float32)))
-            mod._non_persistent_buffers_set.clear()
-            if hasattr(mod, "live"):
-                mod.live = True
-        return self
+        return leaves_to_parameters(self)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.model(img, self.dtype))

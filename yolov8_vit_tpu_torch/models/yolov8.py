@@ -10,6 +10,12 @@ Module and buffer names follow the flax parameter tree
 (`b0.conv.kernel` <-> params/b0/conv/kernel), which is what
 `weights.load_tree` relies on.  Conv kernels are stored OIHW here and
 HWIO in the tree.
+
+`YOLOv8.train_form()` is the model the detector's trainer updates (the
+JAX trainer builds `YOLOv8(fused=True)` too and trains conv + bias): f32,
+every tree leaf an nn.Parameter read by the forward itself.
+`f32_training()` holds cuDNN's and cuBLAS's TF32 switches off around a
+training step, backward included.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolov8_vit_tpu_torch.weights import leaves_to_parameters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +116,26 @@ def _cudnn_tf32(allow: bool):
             torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def f32_training():
+    """Full f32 convolutions and matmuls for a whole training step, under
+    _TF32_LOCK: the forward's conv_f32 calls hold the switch only while
+    they launch, and autograd runs the backward's convolutions after they
+    have returned, where PyTorch's default (cuDNN TF32 on) would apply.
+    Both switches end as they started; a serving thread's conv_f32 waits
+    for the step."""
+    with _TF32_LOCK:
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+
 def conv_f32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
              bias: torch.Tensor | None = None,
              operands_in_bf16: bool = False) -> torch.Tensor:
@@ -137,6 +165,8 @@ def _conv_silu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 class ConvBlock(nn.Module):
+    live = False     # training form: the forward reads conv.kernel
+
     def __init__(self, cin: int, out: int, k: int = 1, s: int = 1):
         super().__init__()
         self.s = s
@@ -147,7 +177,8 @@ class ConvBlock(nn.Module):
                              persistent=False)
 
     def forward(self, x):
-        return _conv_silu(x, self.w, self.conv.bias, self.s)
+        w = self.conv.kernel if self.live else self.w
+        return _conv_silu(x, w, self.conv.bias, self.s)
 
 
 class Bottleneck(nn.Module):
@@ -203,7 +234,10 @@ class DetectHead(nn.Module):
     """Decoupled anchor-free head: box-DFL branch + cls branch per level.
     The two branch-entry convs share their input and run as ONE conv on
     concatenated weights; the final 1x1 convs run in the promotion of
-    input and param dtypes, as flax's nn.Conv does (f32 for f32 params)."""
+    input and param dtypes, as flax's nn.Conv does (f32 for f32 params).
+    The training form concatenates the two entry kernels on each call, so
+    each gets its own gradient."""
+    live = False
 
     def __init__(self, spec: YOLOv8Spec, in_channels: Sequence[int]):
         super().__init__()
@@ -248,11 +282,18 @@ class DetectHead(nn.Module):
                      operands_in_bf16=True)
         return y.to(dt) + conv.bias.to(dt)[:, None, None]
 
+    def _entry(self, i: int):
+        if not self.live:
+            return getattr(self, f"entry{i}_w"), getattr(self, f"entry{i}_b")
+        b0 = getattr(self, f"box{i}_0").conv
+        c0 = getattr(self, f"cls{i}_0").conv
+        return (torch.cat([b0.kernel, c0.kernel]),
+                torch.cat([b0.bias, c0.bias]))
+
     def forward(self, feats):
         outs = []
         for i, f in enumerate(feats):
-            y = _conv_silu(f, getattr(self, f"entry{i}_w"),
-                           getattr(self, f"entry{i}_b"), 1)
+            y = _conv_silu(f, *self._entry(i), 1)
             b = getattr(self, f"box{i}_1")(y[:, :self.c2])
             c = getattr(self, f"cls{i}_1")(y[:, self.c2:])
             b = self._out_conv(b, getattr(self, f"box{i}_2"))
@@ -299,10 +340,21 @@ class YOLOv8(nn.Module):
     def prepare(self) -> None:
         """Make the conv kernels rounded to `self.dtype` and the head's
         fused entry convs: at construction and after each load
-        (weights.load_tree)."""
+        (weights.load_tree).  The training form has none."""
         for m in self.modules():
-            if hasattr(m, "derive"):
+            if hasattr(m, "derive") and not getattr(m, "live", False):
                 m.derive(self.dtype)
+
+    def train_form(self) -> "YOLOv8":
+        """This model's training form, in place: each tree leaf (every
+        conv kernel and bias) becomes an nn.Parameter that the forward
+        reads itself, and the derived buffers (ConvBlock.w, the head's
+        entry{i}_w / _b) are dropped, so nothing goes stale after an
+        optimizer step and `weights.module_tree` gives the trained leaves.
+        f32 only, as the JAX trainer trains."""
+        if self.dtype != torch.float32:
+            raise ValueError(f"the training form is f32; got {self.dtype}")
+        return leaves_to_parameters(self)
 
     def forward(self, img: torch.Tensor):
         if img.dtype != self.dtype:

@@ -108,9 +108,9 @@ def rotation_matrix(center: tuple[float, float], angle: float,
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]])
 
 
-def warp_affine(img: np.ndarray, m: np.ndarray, size: int) -> np.ndarray:
-    """cv2.warpAffine(img, m, (size, size),
-    borderMode=BORDER_REFLECT_101): dst(x, y) = img(M^-1 (x, y))."""
+def _affine_maps(m: np.ndarray, size: int):
+    """warpAffine's source coordinates of a (size, size) output: the 2x3
+    matrix inverted in f64, cast to f32, fma(m0, x, m1 y + m2) in f32."""
     m = [float(v) for v in np.asarray(m, np.float64).ravel()]
     d = m[0] * m[4] - m[1] * m[3]
     d = 1.0 / d if d != 0 else 0.0
@@ -123,7 +123,110 @@ def warp_affine(img: np.ndarray, m: np.ndarray, size: int) -> np.ndarray:
     ones = np.ones((size, size), _F32)
     map_x = _fma(mf[0] * ones, x * ones, (mf[1] * y + mf[2]) * ones)
     map_y = _fma(mf[3] * ones, x * ones, (mf[4] * y + mf[5]) * ones)
-    return remap_linear(img, map_x, map_y)
+    return map_x, map_y
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, size: int) -> np.ndarray:
+    """cv2.warpAffine(img, m, (size, size),
+    borderMode=BORDER_REFLECT_101): dst(x, y) = img(M^-1 (x, y))."""
+    return remap_linear(img, *_affine_maps(m, size))
+
+
+def warp_affine_u8(img: np.ndarray, m: np.ndarray, size: int,
+                   border: int = 114) -> np.ndarray:
+    """cv2.warpAffine(img, m, (size, size), borderValue=(border,) * 3) on
+    a uint8 (H, W, 3) image: the source coordinates of `_affine_maps`,
+    each of the four taps read as f32 (`border` where it lies off the
+    image), the lerps of `remap_linear`, rounded half to even."""
+    h, w = img.shape[:2]
+    map_x, map_y = _affine_maps(m, size)
+    fx, fy = np.floor(map_x), np.floor(map_y)
+    a = (map_x - fx).astype(_F32)[..., None]
+    b = (map_y - fy).astype(_F32)[..., None]
+    # one pixel of border around the image: every tap off the image reads
+    # it once its index is clamped to [-1, n]
+    src = np.pad(img.astype(_F32), ((1, 1), (1, 1), (0, 0)),
+                 constant_values=border)
+    x0 = np.clip(fx, -1, w).astype(np.int64) + 1
+    y0 = np.clip(fy, -1, h).astype(np.int64) + 1
+    x1 = np.clip(fx + 1, -1, w).astype(np.int64) + 1
+    y1 = np.clip(fy + 1, -1, h).astype(np.int64) + 1
+    p00, p01 = src[y0, x0], src[y0, x1]
+    p10, p11 = src[y1, x0], src[y1, x1]
+    v0 = _fma(a, p01 - p00, p00)
+    v1 = _fma(a, p11 - p10, p10)
+    return np.clip(np.rint(_fma(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
+
+
+# ---- OpenCV's uint8 colour conversions (COLOR_RGB2HSV / HSV2RGB) ----------
+_HSV_SHIFT = 12
+
+
+@functools.lru_cache(maxsize=1)
+def _hsv_div_tables() -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's sdiv_table and hdiv_table180: round((255 << 12) / i) and
+    round((180 << 12) / (6 i)), 0 at i = 0 (read-only)."""
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * i))
+    sdiv.flags.writeable = hdiv.flags.writeable = False
+    return sdiv, hdiv
+
+
+def rgb2hsv_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_RGB2HSV) on uint8 (..., 3): OpenCV's
+    integer arithmetic, hue in [0, 180), saturation and value in [0, 255],
+    the divisions by table with 12 fractional bits."""
+    sdiv, hdiv = _hsv_div_tables()
+    x = img.astype(np.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h += np.where(h < 0, 180, 0)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+# HSV2RGB's sectors: the (b, g, r) columns of [v, p, q, t]
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                         [0, 1, 3], [2, 1, 0]])
+# OpenCV converts a row's pixels in blocks of 32 (its AVX2 path: 4 vectors
+# of 8 f32 lanes), which truncate each channel; the row's last W mod 32
+# pixels take its scalar code, which rounds half to even.
+_HSV2RGB_BLOCK = 32
+
+
+def hsv2rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB) on a uint8 (H, W, 3) image
+    with hue in [0, 180), as OpenCV 5 computes it on x86 with AVX2: f32
+    arithmetic, s and v scaled by (1 / 255f), the hue's sector and
+    fraction from h * (6 / 180f), q and t as v (1 - s f) with the inner
+    product fused (fma); each channel from x * 255 truncated in the
+    32-pixel blocks of a row and rounded half to even in its tail (s = 0
+    gives v on every channel, as OpenCV's own branch does)."""
+    if hsv.size and int(hsv[..., 0].max()) >= 180:
+        raise ValueError("hsv2rgb_u8: hue must lie in [0, 180)")
+    one = _F32(1.0)
+    h = hsv[..., 0].astype(_F32) * (_F32(6.0) / _F32(180.0))
+    s = hsv[..., 1].astype(_F32) * (one / _F32(255.0))
+    v = hsv[..., 2].astype(_F32) * (one / _F32(255.0))
+    sector = np.floor(h)
+    h = h - sector
+    tab = np.stack([v, v * (one - s), v * _fma(-s, h, one),
+                    v * _fma(-s, one - h, one)], -1)
+    cols = _HSV_SECTORS[sector.astype(np.int64)]
+    rgb = np.take_along_axis(tab, cols, -1)[..., ::-1] * _F32(255.0)
+    w = hsv.shape[1]
+    tail = w - w % _HSV2RGB_BLOCK
+    out = np.trunc(rgb)
+    out[:, tail:] = np.rint(rgb[:, tail:])
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def _gaussian_taps(sigma: float) -> np.ndarray:

@@ -248,10 +248,28 @@ _KEPT_FLOAT = (torch.float32, torch.bfloat16)
 def _tree_leaves(mod: nn.Module):
     """`mod`'s own tree leaves: its parameter buffers (the derived,
     non-persistent ones are not in the tree) and, in a model's training
-    form (`ViTClassifier.train_form`), its nn.Parameters."""
+    form (`ViTClassifier.train_form`, `YOLOv8.train_form`), its
+    nn.Parameters."""
     return list(mod.named_parameters(recurse=False)) + [
         (n, b) for n, b in mod.named_buffers(recurse=False)
         if n not in mod._non_persistent_buffers_set]
+
+
+def leaves_to_parameters(module: nn.Module) -> nn.Module:
+    """A model's training form, in place: every tree leaf (persistent
+    buffer) becomes an f32 nn.Parameter, the derived non-persistent
+    buffers are dropped, and each submodule with a `live` flag sets it, so
+    its forward reads the leaves themselves and autograd reaches them."""
+    for mod in module.modules():
+        for name in list(mod._buffers):
+            t = mod._buffers.pop(name)
+            if name not in mod._non_persistent_buffers_set:
+                mod.register_parameter(name,
+                                       nn.Parameter(t.to(torch.float32)))
+        mod._non_persistent_buffers_set.clear()
+        if hasattr(mod, "live"):
+            mod.live = True
+    return module
 
 
 def load_tree(module: nn.Module, tree: dict) -> nn.Module:
