@@ -98,13 +98,13 @@ Phases (any failure exits non-zero):
      (VOC XML written, counter bumped), one `/getConfig` round trip, and
      `compare_fused_vs_host` held to count_match == images, mean IoU >
      0.85 and CLASS_AGREE_SHARE (on the frames whose kept set does not
-     hinge on an f32 area tie, `_area_tie_frames`);
+     hinge on an f32 area tie, `runtime.accuracy.area_tie_frames`);
   13. the kept set on the card against the CPU, over phase 5's 32 fitted
      frames (weights and frames of phase 5, four calls of 8 frames on
      each side): an f32 pipeline's num_dets, stage-1 picks (the flat
      index class * n + anchor of each kept row, `_stage1_picks`),
      det_labels and final_valid equal frame for frame but where the
-     frame's stage-2 NMS hinges on an f32 area tie (`_hinges_on_area_tie`),
+     frame's stage-2 NMS hinges on an f32 area tie (`hinges_on_area_tie`),
      and its cls_labels but where a flipped row's top-two logit margin and
      the two sides' logit difference on it are both within KERNEL_TOL's
      atol, one int8 code (`_class_flips`); the main path's bf16 pipeline
@@ -141,8 +141,33 @@ Phases (any failure exits non-zero):
      and after, wall seconds; kernel A launched in validation and none
      of B-J), its engine loaded by the port's Engine and served by
      make_runner with phase 5's ViT-B/16 w8a classify engine on phase 5's
-     frames (A-D launched).
-Each path of phases 5-8, 11, 12, 14 and 15 is driven with every launch count
+     frames (A-D launched);
+  16. from checkpoints to served engines: (a) phase 5's fitted YOLOv8-s
+     unfolded into an ultralytics `best.pt` state dict (seeded BatchNorm
+     statistics, the exact key set of tests/manifests/
+     yolov8s_nc5_state_dict.json), phase 5's ViT-B/16 f32 tree (drawn
+     again from seed 0, before prequantize) as `best_b16.pth` and phase
+     6's ViT-B/8 as `best.pth` (the key set of vit_b8_wrapper_state_dict
+     .json), every manifest key read by the port's converters but the
+     documented ignore list; (b) the export CLI, a process each (`python3
+     -m yolov8_vit_tpu_torch.runtime.export` detect, classify --quant w8a,
+     classify float, two-stage --budget 2), wall seconds each, the
+     converted trees against phases 5 and 6 (folded conv leaves within
+     FOLD_ULPS, every other leaf bit-equal); (c) the merged engine:
+     `Engine(dtype=bf16)` load and first-result seconds, its outputs and
+     make_runner's on it bit-equal to a TwoStagePipeline on the converted
+     trees (A-D launched, E-J not), the frames whose kept set differs from
+     phase 5's counted, then the detect engine with the float ViT-B/8
+     engine through make_runner (A, B, E); (d) the smoke example over
+     phase 12's frames (rows equal to `infer.main`'s, an XML each; the
+     host route's launches: A, C, D); (e) the accuracy check on the
+     checkpoints and on the engine dirs, held to phase 12's bars on the
+     frames without area ties, and its --selftest; (f) refapi's
+     build_model against the engine exported from the same `.pth`
+     (F32_TOL), classExport -> buildInferModel.  Each process run through
+     RUN_MODULE (runpy, as `python3 -m` runs a module) prints its launch
+     counts when it ends.
+Each path of phases 5-8, 11, 12 and 14-16 is driven with every launch count
 set to 0 just before it and read just after: its kernels must have
 launched, and the kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
@@ -151,6 +176,7 @@ is imported.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import json
@@ -1827,40 +1853,6 @@ def _http_json(url: str, body=None, timeout: float = 300.0):
         return json.loads(resp.read())
 
 
-def _hinges_on_area_tie(np, infer, boxes, scores, cfg) -> bool:
-    """Whether one frame's stage-2 NMS depends on float width: the host
-    route's area-sorted NMS (serve/infer.py, as the JAX package's host
-    route computes it) on the frame's clipped stage-1 rows keeps another
-    count with areas in f64 than in f32.  The fitted head pins every box
-    to one size, so candidates' areas tie exactly in f32 (the device's
-    kernel B: ties to the lowest row) and differ in their last digits in
-    f64; where the greedy order then decides the kept set, an f32 result
-    can rightly differ from another run whose boxes moved by an ulp."""
-    keep = scores > cfg.conf_second
-    wide = infer._area_nms_host(boxes[keep].astype(np.float64), scores[keep],
-                                cfg.custom_nms_iou)
-    narrow = infer._area_nms_host(boxes[keep].astype(np.float32),
-                                  scores[keep], cfg.custom_nms_iou)
-    return len(wide) != len(narrow)
-
-
-def _area_tie_frames(np, infer, imageio, det_eng, paths) -> list[str]:
-    """The names of the frames, read from `paths` and run through the host
-    detect engine, whose stage-2 NMS hinges on an f32 area tie
-    (`_hinges_on_area_tie`)."""
-    out = []
-    cfg = det_eng.det_cfg
-    for path in paths:
-        rgb = imageio.imread_rgb(path)
-        x = rgb.transpose(2, 0, 1)[None].astype(np.float32) / 255.0
-        num, bb, sc, _ = (infer._np(t) for t in det_eng(x))
-        n = int(num.reshape(-1)[0])
-        bb = bb.reshape(-1, 4)[:n].clip(0, [rgb.shape[1], rgb.shape[0]] * 2)
-        if _hinges_on_area_tie(np, infer, bb, sc.reshape(-1)[:n], cfg):
-            out.append(os.path.basename(path))
-    return out
-
-
 # Phase 13's bf16 leg holds the card's stage-1 inputs (decoded boxes and
 # sigmoid scores, as efficient_nms_scan receives them) against the CPU
 # copy's.  Both sides evaluate one bf16 detector and round at the same
@@ -2032,16 +2024,17 @@ def _class_flips(torch, legs, f: int) -> str | None:
     return "; ".join(sorted(why)) if why else None
 
 
-def _attribute(torch, np, infer, cfg, legs, pipes, frame, f: int,
+def _attribute(torch, cfg, legs, pipes, frame, f: int,
                rel: float) -> str:
     """Why frame f's integer outputs differ between the card's and the
-    CPU's run: "area tie" (`_hinges_on_area_tie` on either side's stage-2
+    CPU's run: "area tie" (`hinges_on_area_tie` on either side's stage-2
     rows), a flip of the classifier alone (`_class_flips`), the NMS
     decisions that differ between the two sides (`_stage_flips`: a score
     or IoU on the other side of its threshold, with the largest difference
     and whether it is within one ulp, `rel` of the threshold; a pair's
     score or area order swapped; the stage-1 inputs decoded again for
     this frame alone), or "unexplained"."""
+    from yolov8_vit_tpu_torch.runtime.accuracy import hinges_on_area_tie
     card, cpu = legs
     if all(torch.equal(card[k][f], cpu[k][f])
            for k in ("num_dets", "picks", "det_labels", "final_valid")):
@@ -2051,8 +2044,8 @@ def _attribute(torch, np, infer, cfg, legs, pipes, frame, f: int,
     sides = []
     for leg, pipe in zip(legs, pipes):
         n = int(leg["num_dets"][f])
-        if _hinges_on_area_tie(np, infer, leg["boxes"][f][:n].numpy(),
-                               leg["det_scores"][f][:n].numpy(), cfg):
+        if hinges_on_area_tie(leg["boxes"][f][:n].numpy(),
+                              leg["det_scores"][f][:n].numpy(), cfg):
             return "area tie"
         b1, s1, _ = _decoded(torch, pipe, frame.to(pipe.device))
         sides.append((b1[0].cpu(), s1[0].cpu(),
@@ -2098,7 +2091,7 @@ def _stage1_bar(torch, card, cpu, f32_legs) -> dict:
     return rep
 
 
-def kept_set_phase(torch, np, det_cfg, vit_spec, tree: dict, frames,
+def kept_set_phase(torch, det_cfg, vit_spec, tree: dict, frames,
                    devices=("cuda", "cpu")) -> dict:
     """Phase 13: the pipeline of phase 5's weights on its fitted frames,
     the card against a CPU copy, KEPT_SET_CALL frames a call on both: at
@@ -2114,7 +2107,6 @@ def kept_set_phase(torch, np, det_cfg, vit_spec, tree: dict, frames,
     stage-2 mask is a difference too."""
     from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
     from yolov8_vit_tpu_torch.runtime import detector
-    from yolov8_vit_tpu_torch.serve import infer
     from yolov8_vit_tpu_torch.weights import load_pipeline_tree
     keys = ("num_dets", "picks", "det_labels", "final_valid", "cls_labels")
     nms_scan = detector.efficient_nms_scan
@@ -2167,7 +2159,7 @@ def kept_set_phase(torch, np, det_cfg, vit_spec, tree: dict, frames,
                                                          cpu[k][f])]
             if which:
                 diff[f] = {"outputs": which, "why": _attribute(
-                    torch, np, infer, det_cfg, legs, pipes,
+                    torch, det_cfg, legs, pipes,
                     frames[f:f + 1], f, rel)}
         del pipes
         name = "f32" if dtype == torch.float32 else "bf16"
@@ -2211,7 +2203,8 @@ def service_phase(torch, ops, tree: dict, vit_spec, smi: str,
     import threading
     import numpy as np
     from yolov8_vit_tpu_torch.config import DetectConfig
-    from yolov8_vit_tpu_torch.runtime.accuracy import compare_fused_vs_host
+    from yolov8_vit_tpu_torch.runtime.accuracy import (area_tie_frames,
+                                                       compare_fused_vs_host)
     from yolov8_vit_tpu_torch.runtime.engine import Engine
     from yolov8_vit_tpu_torch.serve import imageio, infer
     from yolov8_vit_tpu_torch.serve.app import build_default_service
@@ -2346,7 +2339,7 @@ def service_phase(torch, ops, tree: dict, vit_spec, smi: str,
         # ---- the two routes against each other -----------------------------
         det_eng = Engine(det_dir, device="cuda")
         det_eng.set_desired(["num_dets", "bboxes", "scores", "labels"])
-        ties = _area_tie_frames(np, infer, imageio, det_eng, paths)
+        ties = area_tie_frames(det_eng, paths)
         del det_eng
         out["area_tie_frames"] = ties
         cmp_paths = [p_ for p_ in paths if os.path.basename(p_) not in ties]
@@ -3022,6 +3015,637 @@ def detector_train_phase(torch, ops, np, smi: str, tree: dict, vit_spec,
     return out
 
 
+# phase 16: from checkpoints in the upstream layouts to served engines.
+# The BatchNorm statistics the checkpoint carries are drawn from this seed;
+# gamma and running_var in [0.5, 2] (scales near 1), running_mean normal.
+CKPT_SEED = 16
+# ultralytics' YOLOv8 detect yaml: layer index -> the port's module name
+# (an independent copy of the table runtime/convert.py reads)
+ULTRA_LAYERS = {0: "b0", 1: "b1", 2: "b2", 3: "b3", 4: "b4", 5: "b5",
+                6: "b6", 7: "b7", 8: "b8", 9: "b9", 12: "n12", 15: "n15",
+                16: "n16", 18: "n18", 19: "n19", 21: "n21"}
+# a conv leaf folded from (conv, BN) against the tree it was unfolded
+# from: the unfold divides by the scale in f64 and rounds to f32 once; the
+# fold recomputes the scale in f32 (var + eps, sqrt, divide: three
+# roundings) and rounds the product once: about 4.5 roundings of 2^-24
+# relative at most, so within 4 f32 ulps of the leaf's largest magnitude
+# (an ulp of a magnitude m is more than m 2^-24).  A folded bias is beta -
+# mean x scale: the same roundings on operands of the size of beta, which
+# for a zero bias is all that is left, so the bias is held to 4 ulps of
+# its largest |beta|
+FOLD_ULPS = 4
+# the converter's documented ignore list (tests/test_checkpoint_manifests)
+YOLO_IGNORED = ("num_batches_tracked", "model.22.dfl")
+# runs a package module as `python3 -m` does (runpy, as __main__) and
+# prints, when it ends, the child's kernel launch counts and the seconds
+# the module itself ran (the rest of the process's wall time is the
+# interpreter's start and the imports of torch and the package)
+RUN_MODULE = """import json, runpy, sys, time
+from yolov8_vit_tpu_torch import ops
+mod = sys.argv.pop(1)
+t0 = time.perf_counter()
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+finally:
+    print("launch_counts " + json.dumps(dict(
+        ops.launch_counts(), module_s=time.perf_counter() - t0)), flush=True)
+"""
+# a cold start from an engine dir in a process of its own: import, the
+# frames of a directory decoded and moved to the card (the CUDA context
+# starts here), `Engine` load, the first result (cuDNN's plans and the
+# kernels' libraries load here)
+COLD_START = """import json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+t_torch = time.perf_counter()
+from yolov8_vit_tpu_torch.runtime.engine import Engine
+from yolov8_vit_tpu_torch.serve import imageio
+t1 = time.perf_counter()
+path, frames_dir = sys.argv[1:3]
+x = torch.from_numpy(np.stack([imageio.imread_rgb(os.path.join(frames_dir, n))
+                               for n in sorted(os.listdir(frames_dir))]))
+x = x.to("cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+eng = Engine(path, device="cuda", dtype=torch.bfloat16)
+t3 = time.perf_counter()
+out = eng(x)
+torch.cuda.synchronize()
+t4 = time.perf_counter()
+print(json.dumps({"import_s": t1 - t0, "torch_import_s": t_torch - t0,
+                  "frames_to_card_s": t2 - t1,
+                  "engine_load_s": t3 - t2, "first_result_s": t4 - t3,
+                  "frames": len(x), "kept": int(out[4].sum())}))
+"""
+
+
+def _tree_at(tree: dict, path) -> dict:
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _ultra_path(prefix: str) -> tuple:
+    """An ultralytics module prefix -> the tree path of its conv:
+    model.2.m.0.cv1 -> (b2, m0, cv1, conv); model.22.cv3.1.0 ->
+    (detect, cls1_0, conv); model.22.cv2.1.2 -> (detect, box1_2)."""
+    parts = prefix.split(".")[1:]
+    if parts[0] == "22":
+        head = {"cv2": "box", "cv3": "cls"}[parts[1]]
+        name = f"{head}{parts[2]}_{parts[3]}"
+        return ("detect", name) if parts[3] == "2" else \
+            ("detect", name, "conv")
+    out, rest = [ULTRA_LAYERS[int(parts[0])]], parts[1:]
+    while rest:
+        if rest[0] == "m":
+            out.append(f"m{rest[1]}")
+            rest = rest[2:]
+        else:
+            out.append(rest[0])
+            rest = rest[1:]
+    return tuple(out) + ("conv",)
+
+
+def unfold_yolov8(torch, np, det_params: dict, manifest: dict):
+    """An ultralytics YOLOv8 state dict whose conv + BN folds (eps 1e-3)
+    back to `det_params` (fused layout, HWIO kernels): for each BN conv,
+    seeded statistics, weight = fused / scale and beta = bias + mean x
+    scale in f64, stored f32; the head's `.2` convs plain with bias; the
+    DFL conv arange(16); num_batches_tracked.  Keys and shapes exactly the
+    manifest's.  Returns (state dict of tensors, {prefix: max |beta|})."""
+    rng = np.random.default_rng(CKPT_SEED)
+    sd, beta_max = {}, {}
+    for key, shape in manifest.items():
+        if key == "model.22.dfl.conv.weight":
+            sd[key] = torch.arange(16, dtype=torch.float32).reshape(shape)
+        elif key.endswith(".bn.num_batches_tracked"):
+            sd[key] = torch.tensor(1000)
+        elif key.endswith(".conv.weight"):
+            prefix = key[:-len(".conv.weight")]
+            leaf = _tree_at(det_params, _ultra_path(prefix))
+            k = np.asarray(leaf["kernel"], np.float64).transpose(3, 2, 0, 1)
+            b = np.asarray(leaf["bias"], np.float64)
+            n = k.shape[0]
+            gamma = rng.uniform(0.5, 2.0, n).astype(np.float32)
+            var = rng.uniform(0.5, 2.0, n).astype(np.float32)
+            mean = rng.normal(size=n).astype(np.float32)
+            scale = gamma.astype(np.float64) / np.sqrt(
+                var.astype(np.float64) + 1e-3)
+            beta = b + mean * scale
+            beta_max[prefix] = float(np.abs(beta).max())
+            bn = {"weight": gamma, "bias": beta.astype(np.float32),
+                  "running_mean": mean, "running_var": var}
+            sd[key] = torch.from_numpy(
+                (k / scale[:, None, None, None]).astype(np.float32))
+            for name, v in bn.items():
+                sd[f"{prefix}.bn.{name}"] = torch.from_numpy(v)
+        elif key.endswith(".2.weight") or key.endswith(".2.bias"):
+            leaf = _tree_at(det_params, _ultra_path(key.rsplit(".", 1)[0]))
+            if key.endswith("weight"):
+                sd[key] = torch.as_tensor(leaf["kernel"]).float().permute(
+                    3, 2, 0, 1).contiguous()
+            else:
+                sd[key] = torch.as_tensor(leaf["bias"]).float().clone()
+    missing = set(manifest) - set(sd)
+    if missing or any(list(sd[k].shape) != list(s)
+                      for k, s in manifest.items()):
+        raise AssertionError(f"unfolded state dict: missing "
+                             f"{sorted(missing)[:4]} or shapes off the "
+                             f"manifest")
+    return sd, beta_max
+
+
+def unconvert_vit(torch, vit_params: dict, depth: int) -> dict:
+    """A ViTClassifier f32 tree -> the Network_Wrapper(timm ViT) state
+    dict it was converted from (timm names, Linear (out, in), Conv2d
+    OIHW)."""
+    def t(x):
+        return torch.as_tensor(x).float()
+
+    def lin(node, name):
+        return {f"{name}.weight": t(node["kernel"]).t().contiguous(),
+                f"{name}.bias": t(node["bias"]).clone()}
+
+    def norm(node, name):
+        return {f"{name}.weight": t(node["scale"]).clone(),
+                f"{name}.bias": t(node["bias"]).clone()}
+
+    m = vit_params["model"]
+    sd = {"model.cls_token": t(m["cls_token"]).clone(),
+          "model.pos_embed": t(m["pos_embed"]).clone(),
+          "model.patch_embed.proj.weight": t(
+              m["patch_embed"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+          "model.patch_embed.proj.bias": t(m["patch_embed"]["bias"]).clone()}
+    for i in range(depth):
+        blk, p = m[f"block{i}"], f"model.blocks.{i}"
+        sd.update(norm(blk["norm1"], f"{p}.norm1"))
+        sd.update(lin(blk["attn"]["qkv"], f"{p}.attn.qkv"))
+        sd.update(lin(blk["attn"]["proj"], f"{p}.attn.proj"))
+        sd.update(norm(blk["norm2"], f"{p}.norm2"))
+        sd.update(lin(blk["mlp_fc1"], f"{p}.mlp.fc1"))
+        sd.update(lin(blk["mlp_fc2"], f"{p}.mlp.fc2"))
+    sd.update(norm(m["norm"], "model.norm"))
+    sd.update(lin(m["head"], "model.head"))
+    sd.update(lin(vit_params["fc1"], "fc.1"))
+    sd.update(lin(vit_params["fc2"], "fc.3"))
+    return sd
+
+
+class _TrackingDict(dict):
+    """Records which keys a converter reads."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.read: set = set()
+
+    def __getitem__(self, k):
+        self.read.add(k)
+        return super().__getitem__(k)
+
+    def get(self, k, default=None):
+        if k in self:
+            self.read.add(k)
+        return super().get(k, default)
+
+
+def _flat(tree: dict, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _compare_trees(torch, got: dict, want: dict, what: str,
+                   beta_max: dict | None = None) -> dict:
+    """Leaf for leaf: equal bit for bit, but a folded conv leaf (under a
+    "conv" node, when `beta_max` is given) within FOLD_ULPS f32 ulps of
+    its largest magnitude (the kernel) or of its largest |beta| (the
+    bias).  Returns the largest differences."""
+    import numpy as np
+    g, w = _flat(got), _flat(want)
+    if set(g) != set(w):
+        raise AssertionError(f"{what}: leaves differ: "
+                             f"{sorted(set(g) ^ set(w))[:4]}")
+    worst = {"folded_ulps": 0.0, "folded_abs": 0.0, "exact_leaves": 0}
+    inv = {("params",) + _ultra_path(p)[:-1]: b
+           for p, b in (beta_max or {}).items()}
+    for path in w:
+        a = torch.as_tensor(g[path])
+        b = torch.as_tensor(w[path])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what} {'/'.join(path)}: {a.dtype} "
+                                 f"{tuple(a.shape)} vs {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if beta_max is not None and path[-2] == "conv":
+            diff = float((a.float() - b.float()).abs().max())
+            mag = (inv[path[:-2]] if path[-1] == "bias"
+                   else float(b.float().abs().max()))
+            ulps = diff / float(np.spacing(np.float32(mag)))
+            worst["folded_ulps"] = max(worst["folded_ulps"], ulps)
+            worst["folded_abs"] = max(worst["folded_abs"], diff)
+            if ulps > FOLD_ULPS:
+                raise AssertionError(f"{what} {'/'.join(path)}: {ulps:.2f}"
+                                     f" ulps of {mag} off the tree")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what} {'/'.join(path)}: not bit-equal")
+        else:
+            worst["exact_leaves"] += 1
+    return worst
+
+
+def _run_module(module: str, args: list, what: str,
+                timeout: float = 600.0) -> tuple[str, dict, float]:
+    """`python3 -m module args` (through RUN_MODULE) from the repo root:
+    (its standard output, its launch counts, wall seconds).  Fails the
+    phase on a non-zero exit."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", RUN_MODULE, module,
+                          *args], cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"{what}: exit {run.returncode}\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    lines = run.stdout.splitlines()
+    counts = json.loads(lines[-1].removeprefix("launch_counts "))
+    counts["process_s"] = secs
+    return "\n".join(lines[:-1]), counts, secs
+
+
+def _child_launches(counts: dict, what: str, must, must_not) -> dict:
+    counts = {k: v for k, v in counts.items() if not k.endswith("_s")}
+    for name in must:
+        if counts[name] == 0:
+            raise AssertionError(f"{what}: kernel wrapper {name} never "
+                                 f"launched")
+    for name in tuple(must_not) + G_J:
+        if counts[name] != 0:
+            raise AssertionError(f"{what}: kernel wrapper {name} launched "
+                                 f"{counts[name]} times off its path")
+    return counts
+
+
+def _records_equal(a: list, b: list, what: str) -> None:
+    import numpy as np
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} vs {len(b)} records")
+    for ra, rb in zip(a, b):
+        for k in ra:
+            if not np.array_equal(ra[k], rb[k]):
+                raise AssertionError(f"{what}: {k} differs")
+
+
+def checkpoint_phase(torch, ops, np, smi: str, b16_runner, b16_tree: dict,
+                     b8_tree: dict, frames) -> dict:
+    """Phase 16: checkpoints in the upstream layouts (phase 5's YOLOv8-s
+    and ViT-B/16, phase 6's ViT-B/8) -> the export CLI -> served engines,
+    the smoke example, the accuracy check and refapi, on the card."""
+    from yolov8_vit_tpu_torch import refapi
+    from yolov8_vit_tpu_torch.config import CFG
+    from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
+    from yolov8_vit_tpu_torch.models.vit import ViTSpec
+    from yolov8_vit_tpu_torch.ops.quant import (MLP_AND_ATTN_SUFFIXES,
+                                                prequantize_tree)
+    from yolov8_vit_tpu_torch.refapi import trainClass
+    from yolov8_vit_tpu_torch.runtime import convert
+    from yolov8_vit_tpu_torch.runtime.accuracy import area_tie_frames
+    from yolov8_vit_tpu_torch.runtime.engine import TWO_STAGE_OUTPUTS, Engine
+    from yolov8_vit_tpu_torch.serve import imageio, infer
+    from yolov8_vit_tpu_torch.serve.batch_runner import (BatchRunner,
+                                                         make_runner)
+    from yolov8_vit_tpu_torch.utils.densify import make_cover_scenes
+    from yolov8_vit_tpu_torch.weights import (init_detect_tree,
+                                              init_vit_tree,
+                                              load_pipeline_tree,
+                                              read_engine)
+    root = os.path.join(ENGINE_DIR, "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out: dict = {"card": smi}
+    man_dir = os.path.join(HERE, "tests", "manifests")
+    with open(os.path.join(man_dir, "yolov8s_nc5_state_dict.json")) as f:
+        yolo_manifest = json.load(f)
+    with open(os.path.join(man_dir, "vit_b8_wrapper_state_dict.json")) as f:
+        vit_manifest = json.load(f)
+    b16_spec = b16_runner.pipeline.vit_spec
+    try:
+        # ---- (a) the checkpoints ---------------------------------------
+        pt, b16_pth, b8_pth = (os.path.join(root, n) for n in
+                               ("best.pt", "best_b16.pth", "best.pth"))
+        det_sd, beta_max = unfold_yolov8(torch, np, b16_tree["det"]["params"],
+                                         yolo_manifest)
+        torch.save(det_sd, pt)
+        # phase 5's ViT-B/16 tree before prequantize: init_tree's draws
+        # (detector, then ViT) again from seed 0, the ViT in f32
+        gen = torch.Generator().manual_seed(0)
+        init_detect_tree(b16_runner.pipeline.det.spec, gen)
+        b16_f32 = init_vit_tree(dataclasses.replace(b16_spec, quant="none"),
+                                5, gen)["params"]     # f32, not prequantized
+        _compare_trees(torch, {"params": prequantize_tree(
+            b16_f32, MLP_AND_ATTN_SUFFIXES)}, b16_tree["vit"],
+            "the ViT-B/16 f32 tree drawn again, prequantized")
+        torch.save(unconvert_vit(torch, b16_f32, b16_spec.depth), b16_pth)
+        b8_sd = unconvert_vit(torch, b8_tree["vit"]["params"], 12)
+        if set(b8_sd) != set(vit_manifest) or any(
+                list(b8_sd[k].shape) != list(s)
+                for k, s in vit_manifest.items()):
+            raise AssertionError("best.pth: keys or shapes off the "
+                                 "manifest")
+        torch.save(b8_sd, b8_pth)
+        # every manifest key consumed, but the documented ignore list
+        unread = {}
+        for name, path, conv, manifest in (
+                ("best.pt", pt, convert.convert_yolov8, yolo_manifest),
+                ("best.pth", b8_pth, convert.convert_vit_wrapper,
+                 vit_manifest)):
+            sd = _TrackingDict(convert.load_torch_state_dict(path))
+            conv(sd)
+            unread[name] = [k for k in manifest if k not in sd.read
+                            and not any(t in k for t in YOLO_IGNORED)]
+            if unread[name]:
+                raise AssertionError(f"{name}: the converter left "
+                                     f"{unread[name][:5]} unread")
+        out["checkpoint_mb"] = {n: os.path.getsize(p) / 1e6 for n, p in
+                                (("best.pt", pt), ("best_b16.pth", b16_pth),
+                                 ("best.pth", b8_pth))}
+        del det_sd, b8_sd
+
+        # ---- (b) the export CLI --------------------------------------------
+        det_dir, b16_dir, b8_dir, two_dir = (
+            os.path.join(root, n) for n in ("detect", "classify_b16_w8a",
+                                            "classify_b8", "two_stage"))
+        export_runs = {
+            "detect": ["detect", "--weights", pt, "--out", det_dir],
+            "classify_b16_w8a": ["classify", "--weights", b16_pth, "--out",
+                                 b16_dir, "--model", "vit_base_patch16_224",
+                                 "--quant", "w8a"],
+            "classify_b8": ["classify", "--weights", b8_pth, "--out",
+                            b8_dir],
+            "two_stage": ["two-stage", "--detect-engine", det_dir,
+                          "--classify-engine", b16_dir, "--out", two_dir,
+                          "--budget", str(BUDGET)]}
+        out["export_s"], out["export_module_s"] = {}, {}
+        for name, args in export_runs.items():
+            _, counts, secs = _run_module(
+                "yolov8_vit_tpu_torch.runtime.export", args,
+                f"export {name}")
+            out["export_s"][name] = secs
+            out["export_module_s"][name] = counts["module_s"]
+            _child_launches(counts, f"export {name}", (), A_B + C_D + E_F)
+        print(f"export CLI wall s on {smi} (a process each): "
+              f"{json.dumps(out['export_s'])}; of which the export module "
+              f"ran {json.dumps(out['export_module_s'])}", flush=True)
+        # phase 12's frames, as .bmp files
+        frames_dir = os.path.join(root, "frames")
+        os.makedirs(frames_dir)
+        imgs, _ = make_cover_scenes(np.random.default_rng(12), BATCH,
+                                    (640, 640), lam=1.5)
+        paths = []
+        for i, img in enumerate(imgs):
+            paths.append(os.path.join(frames_dir, f"cam{i:02d}.bmp"))
+            imageio.imwrite(paths[-1], imageio.bgr2rgb(img))
+        det_meta, det_tree = read_engine(det_dir)
+        b16_meta, b16_conv = read_engine(b16_dir)
+        b8_meta, b8_conv = read_engine(b8_dir)
+        out["fold"] = _compare_trees(torch, det_tree, b16_tree["det"],
+                                     "detect engine", beta_max)
+        _compare_trees(torch, b16_conv, b16_tree["vit"],
+                       "ViT-B/16 w8a engine")
+        _compare_trees(torch, b8_conv, b8_tree["vit"], "ViT-B/8 engine")
+        if b16_meta["vit_spec"] != dataclasses.asdict(b16_spec) or \
+                b8_meta["vit_spec"] != dataclasses.asdict(ViTSpec()):
+            raise AssertionError(f"exported specs: {b16_meta['vit_spec']}, "
+                                 f"{b8_meta['vit_spec']}")
+        print(f"converted trees against phases 5 and 6: folded conv leaves "
+              f"at most {out['fold']['folded_ulps']:.3f} f32 ulps "
+              f"(|d| <= {out['fold']['folded_abs']:.3g}; bar {FOLD_ULPS}), "
+              f"every other leaf bit-equal; manifest keys unread: "
+              f"{unread}", flush=True)
+
+        # ---- (c) the merged engine, served --------------------------------
+        t0 = time.perf_counter()
+        eng = Engine(two_dir, device="cuda", dtype=torch.bfloat16)
+        out["engine_load_s"] = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = dict(zip(TWO_STAGE_OUTPUTS, eng(frames)))
+        torch.cuda.synchronize()
+        out["first_result_s"] = time.perf_counter() - t0
+        out["merged_engine_launches"] = _path_launches(
+            ops, "merged_engine", A_B + C_D, E_F)
+        ref_pipe = TwoStagePipeline(
+            det_cfg=eng.det_cfg, vit_spec=eng.vit_spec,
+            classify_budget=BUDGET, dtype=torch.bfloat16, device="cuda")
+        load_pipeline_tree(ref_pipe, {"det": det_tree, "vit": b16_conv})
+        with torch.no_grad():
+            ref = ref_pipe(frames)
+        for k in TWO_STAGE_OUTPUTS:
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"merged Engine: {k} differs from the "
+                                     f"pipeline on the converted trees")
+        out["merged_engine_step_ms"] = _time_ms(lambda: eng(frames), 3)
+        with torch.no_grad():
+            p5 = b16_runner.pipeline(frames)
+        diff = [f for f in range(len(frames)) if not all(
+            torch.equal(got[k][f], p5[k][f])
+            for k in ("num_dets", "final_valid", "det_labels",
+                      "cls_labels"))]
+        out["frames_differing_from_phase5"] = diff
+        out["kept"] = int(got["final_valid"].sum())
+        # what moves them: the detector's kernels rounded to bf16 (the
+        # bf16 pipeline's conv operands) that the fold moved to the other
+        # bf16 neighbour; and the same comparison with f32 pipelines
+        ref_det = _flat(b16_tree["det"])
+        out["bf16_kernel_values_moved"] = sum(
+            int((torch.as_tensor(v).bfloat16()
+                 != torch.as_tensor(ref_det[p]).bfloat16()).sum())
+            for p, v in _flat(det_tree).items() if p[-1] == "kernel")
+        out["kernel_values"] = sum(torch.as_tensor(v).numel() for p, v in
+                                   ref_det.items() if p[-1] == "kernel")
+        f32 = []
+        for tree in ({"det": det_tree, "vit": b16_conv}, b16_tree):
+            pipe = TwoStagePipeline(
+                det_cfg=eng.det_cfg, vit_spec=eng.vit_spec,
+                classify_budget=BUDGET, dtype=torch.float32, device="cuda")
+            load_pipeline_tree(pipe, tree)
+            with torch.no_grad():
+                f32.append(pipe(frames))
+            del pipe
+        out["frames_differing_from_phase5_f32"] = [
+            f for f in range(len(frames)) if not all(
+                torch.equal(f32[0][k][f], f32[1][k][f])
+                for k in ("num_dets", "final_valid", "det_labels",
+                          "cls_labels"))]
+        del eng, f32
+        runner = make_runner(det_engine_path=two_dir, device="cuda")
+        runner.max_batch = BATCH
+        ops.reset_launch_counts()
+        recs = runner.run_device_batches([frames])[0]
+        torch.cuda.synchronize()
+        out["merged_runner_launches"] = _path_launches(
+            ops, "merged_runner", A_B + C_D, E_F)
+        want = BatchRunner(ref_pipe, max_batch=BATCH).run_device_batches(
+            [frames])[0]
+        _records_equal(recs, want, "make_runner(merged)")
+        out["merged_runner_step_ms"] = _time_ms(lambda: runner._fn(frames),
+                                                3)
+        del runner, ref_pipe
+        runner = make_runner(det_dir, b8_dir, classify_budget=BUDGET,
+                             device="cuda")
+        runner.max_batch = BATCH
+        ops.reset_launch_counts()
+        recs = runner.run_device_batches([frames])[0]
+        torch.cuda.synchronize()
+        out["b8_float_runner_launches"] = _path_launches(
+            ops, "b8_float_runner", A_B + ("fused_attention_block",),
+            C_D + ("flash_attention",))
+        if not all(np.isfinite(r["cls_scores"]).all() for r in recs):
+            raise AssertionError("ViT-B/8 engine served: non-finite scores")
+        out["b8_float_runner_step_ms"] = _time_ms(
+            lambda: runner._fn(frames), 3)
+        del runner
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", COLD_START, two_dir,
+                              frames_dir], cwd=HERE, capture_output=True,
+                             text=True, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"cold start: {run.stderr[-3000:]}")
+        out["cold_start"] = dict(json.loads(run.stdout.splitlines()[-1]),
+                                 process_s=time.perf_counter() - t0)
+        print(f"cold start from the merged engine dir, a process of its "
+              f"own on {smi}: {json.dumps(out['cold_start'])}", flush=True)
+        print(f"merged engine on {smi}, in this process (its CUDA context, "
+              f"cuDNN's plans and the kernels loaded by phase 5): Engine "
+              f"load {out['engine_load_s']:.3f} s, first result (32 "
+              f"frames) {out['first_result_s']:.3f} s, step "
+              f"{out['merged_engine_step_ms']:.2f} ms; make_runner on it "
+              f"{out['merged_runner_step_ms']:.2f} ms; detect + ViT-B/8 "
+              f"float engines {out['b8_float_runner_step_ms']:.2f} ms; "
+              f"frames whose kept set differs from phase 5's (the fold's "
+              f"rounding): bf16 {diff}, f32 "
+              f"{out['frames_differing_from_phase5_f32']}; detector "
+              f"kernel values on the other bf16 neighbour "
+              f"{out['bf16_kernel_values_moved']} of "
+              f"{out['kernel_values']}", flush=True)
+
+        # ---- (d) the smoke example over phase 12's frames ------------------
+        xml_dir = os.path.join(root, "xml")
+        text, counts, secs = _run_module(
+            "yolov8_vit_tpu_torch.examples.smoke",
+            ["--detect-engine", det_dir, "--classify-engine", b16_dir,
+             "--images", frames_dir, "--out-xml", xml_dir], "smoke example")
+        out["smoke_s"], out["smoke_module_s"] = secs, counts["module_s"]
+        out["smoke_launches"] = _child_launches(
+            counts, "smoke example", ("efficient_nms_scan",) + C_D,
+            ("area_sorted_nms",) + E_F)
+        rows = [ast.literal_eval(line) for line in text.splitlines()
+                if line.startswith("(")]
+        det_eng = Engine(det_dir, device="cuda")
+        det_eng.set_desired(["num_dets", "bboxes", "scores", "labels"])
+        cls_eng = Engine(b16_dir, device="cuda")
+        ops.reset_launch_counts()
+        direct = infer.main(det_eng, frames_dir, model_list=[cls_eng])
+        torch.cuda.synchronize()
+        out["host_route_launches"] = _path_launches(
+            ops, "host_route", ("efficient_nms_scan",) + C_D,
+            ("area_sorted_nms",) + E_F)
+        if rows != [tuple(r) for r in direct] or not rows:
+            raise AssertionError(f"smoke example: {len(rows)} rows, "
+                                 f"infer.main {len(direct)}, not equal")
+        per_frame = {}
+        for r in rows:
+            per_frame[r[0]] = per_frame.get(r[0], 0) + 1
+        for name in per_frame:
+            xml = os.path.join(xml_dir, name.replace(".bmp", ".xml"))
+            if not os.path.exists(xml) or \
+                    open(xml).read().count("<object>") != per_frame[name]:
+                raise AssertionError(f"smoke example: {xml} missing or "
+                                     f"not {per_frame[name]} objects")
+        out["smoke_rows"], out["smoke_frames_with_rows"] = \
+            len(rows), len(per_frame)
+        print(f"smoke example: {len(rows)} rows in {len(per_frame)} of "
+              f"{len(paths)} frames, equal to infer.main's, an XML each; "
+              f"the host route launched A "
+              f"{out['host_route_launches']['efficient_nms_scan']}, C "
+              f"{out['host_route_launches']['quant_mlp_ln_fused']}, D "
+              f"{out['host_route_launches']['fused_attention_block_i8']} "
+              f"times (B and E-J 0); {secs:.1f} s wall", flush=True)
+
+        # ---- (e) the accuracy check ----------------------------------------
+        ties = area_tie_frames(det_eng, paths)
+        del det_eng, cls_eng
+        torch.cuda.empty_cache()
+        cmp_dir = os.path.join(root, "cmp")
+        os.makedirs(cmp_dir)
+        for p in paths:
+            if os.path.basename(p) not in ties:
+                shutil.copy(p, cmp_dir)
+        out["area_tie_frames"] = ties
+        if len(ties) > 0.25 * len(paths):
+            raise AssertionError(f"accuracy check: {len(ties)} of "
+                                 f"{len(paths)} frames hinge on area ties")
+        out["accuracy"] = {}
+        for name, args in (
+                ("checkpoints", ["--det", pt, "--vit", b16_pth, "--variant",
+                                 "s", "--vit-patch", "16"]),
+                ("engine_dirs", ["--det", det_dir, "--vit", b16_dir]),
+                ("selftest", ["--selftest"])):
+            if name != "selftest":
+                args = args + ["--images", cmp_dir]
+            text, counts, secs = _run_module(
+                "yolov8_vit_tpu_torch.tools.accuracy_check", args,
+                f"accuracy check ({name})")
+            acc = json.loads(text.splitlines()[-1])
+            launches = _child_launches(counts, f"accuracy check ({name})",
+                                       A_B, ())
+            out["accuracy"][name] = dict(
+                acc, wall_s=secs, module_s=counts["module_s"],
+                launches={k: v for k, v in launches.items() if v})
+            print(f"accuracy check ({name}, {secs:.1f} s wall): "
+                  f"{json.dumps(acc)}", flush=True)
+            if acc["count_match"] != acc["images"] or acc["detections"] == 0:
+                raise AssertionError(f"accuracy check ({name}): {acc}")
+            if name != "selftest" and (
+                    acc["mean_iou"] <= 0.85 or
+                    acc["class_agree"] < CLASS_AGREE_SHARE * acc["matched"]):
+                raise AssertionError(f"accuracy check ({name}): {acc}")
+
+        # ---- (f) refapi on the card -----------------------------------------
+        model, params = refapi.build_model(
+            CFG(), "vit_base_patch8_224.augreg_in21k", b8_pth,
+            device="cuda")
+        g = torch.Generator().manual_seed(16)
+        crops = (torch.rand(8, 224, 224, 3, generator=g) * 2 - 1).to("cuda")
+        cls_eng = Engine(b8_dir, device="cuda")
+        with torch.no_grad():
+            logits = model(crops)
+        ref = cls_eng(crops)
+        out["refapi_vs_engine"] = _close(torch, "refapi.build_model",
+                                         logits, ref, F32_TOL)
+        exported = trainClass.classExport(
+            CFG(), b8_pth, out_dir=os.path.join(root, "class_export"))
+        back = trainClass.buildInferModel(exported)
+        if back is None or back.vit_spec != refapi.spec_from_timm_name(
+                CFG().model_name):
+            raise AssertionError("classExport -> buildInferModel failed")
+        out["class_export_vs_build_model"] = _close(
+            torch, "classExport", back(crops), logits, F32_TOL)
+        print(f"refapi on {smi}: build_model logits vs the exported engine "
+              f"max |d| {out['refapi_vs_engine']}, classExport -> "
+              f"buildInferModel {out['class_export_vs_build_model']}",
+              flush=True)
+        del model, cls_eng, back
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -3143,7 +3767,7 @@ def main() -> int:
             {k: v for k, v in conv.items() if k != "per_conv"})
     t0 = time.perf_counter()
     b16_pipe = b16_runner.pipeline
-    kept = kept_set_phase(torch, np, b16_pipe.det_cfg, b16_pipe.vit_spec,
+    kept = kept_set_phase(torch, b16_pipe.det_cfg, b16_pipe.vit_spec,
                           b16_tree, paths["vit_b16_w8a"]["frames"])
     _report(f"kept set card vs CPU ({time.perf_counter() - t0:.1f} s)",
             {k: v for k, v in kept.items() if not isinstance(v, dict)})
@@ -3211,6 +3835,15 @@ def main() -> int:
           f" times in validation", flush=True)
     _report(f"detector training ({time.perf_counter() - t0:.1f} s)", det)
 
+    t0 = time.perf_counter()
+    ckpt = checkpoint_phase(torch, ops, np, smi, b16_runner, b16_tree,
+                            b8_tree, paths["vit_b16_w8a"]["frames"])
+    for name in ("merged_engine", "merged_runner", "b8_float_runner",
+                 "host_route"):
+        paths[f"checkpoint_{name}"] = {"launches": ckpt[f"{name}_launches"]}
+    _report(f"checkpoints to served engines "
+            f"({time.perf_counter() - t0:.1f} s)", ckpt)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
     b16_frames = paths["vit_b16_w8a"].pop("frames")
@@ -3255,6 +3888,7 @@ def main() -> int:
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
+                   "checkpoints": ckpt,
                    "head_dims_wide_ms": wide_ms,
                    "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,

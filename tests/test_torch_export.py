@@ -1,0 +1,245 @@
+"""PyTorch port, the engine build CLI (`runtime/export.py`) and
+`merge_two_stage_engine`, held against the JAX package's export CLI
+(`yolov8_vit_tpu.runtime.export.main`, in-process) on the same tiny
+checkpoints.
+
+- detect, classify (float, w8, w8a), both --param-dtype values and
+  two-stage: meta.json and params.msgpack byte for byte equal to JAX's.
+- Each port-written engine loads in JAX's Engine and in the port's, with
+  equal outputs at tests/test_torch_runtime.py's bars: integer outputs
+  equal, detection scores 1e-5, boxes 1e-2, class scores 1e-4; classify
+  logits atol 5e-5, rtol 1e-4 for float weights.  The int8 engines are
+  12 blocks deep (the CLI's smallest ViT, ViT-Ti), and there an
+  activation code at a .5 rounding boundary goes to its other neighbour
+  where the two packages' f32 LayerNorm and GEMM sums differ in the last
+  bit: the logits of one package move as much when its input moves by
+  one ulp (INT8_ULP_FACTOR below).  Held: argmax equal, and the
+  difference within INT8_ULP_FACTOR times the port engine's own change
+  under a one-ulp move of its input, measured in the test.
+- Random-init engines (no --weights): the same meta, keys, shapes and
+  dtypes (the values differ: JAX draws from PRNGKey(0), the port from a
+  torch.Generator).
+- The bad merge is refused as JAX refuses it; the JAX CLI's compiled
+  artifact flags are refused by the port's parser.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from yolov8_vit_tpu.models.yolov8 import YOLOV8_VARIANTS as J_VARIANTS
+from yolov8_vit_tpu.runtime import export as jexport
+from yolov8_vit_tpu.runtime.engine import Engine as JEngine
+
+from yolov8_vit_tpu_torch.runtime import export
+from yolov8_vit_tpu_torch.runtime.engine import (TWO_STAGE_OUTPUTS, Engine,
+                                                 merge_two_stage_engine)
+from yolov8_vit_tpu_torch.weights import read_engine
+
+from torch_refs import NetworkWrapper, TimmViT, UYOLOv8
+
+# a tiny timm id: ViT-Ti (dim 192, depth 12, 3 heads) at 32 px, patch 8
+VIT_MODEL = "vit_tiny_patch8_32"
+# detect flags: YOLOv8-n at 64 px, thresholds low enough that a random
+# detector keeps boxes
+DET_ARGS = ["--variant", "n", "--imgsz", "64", "--conf-thres", "1e-6",
+            "--iou-thres", "0.995", "--topk", "16"]
+# two evaluations of an int8 ViT whose inputs differ by rounding noise
+# differ by about its response to a one-ulp input move, which the test
+# measures on its own inputs; a fault in the int8 path (a wrong scale, a
+# transposed kernel) moves logits by the quantization error or more, and
+# flips an argmax
+INT8_ULP_FACTOR = 4.0
+
+
+@pytest.fixture(scope="module")
+def ckpts(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ckpt")
+    torch.manual_seed(0)
+    det = UYOLOv8(dataclasses.replace(J_VARIANTS["n"], num_classes=5)).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in det.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=g))
+    vit = NetworkWrapper(TimmViT(img_size=32, patch=8, dim=192, depth=12,
+                                 heads=3, num_classes=1000), 5)
+    pt, pth = str(root / "best.pt"), str(root / "best.pth")
+    torch.save(det.state_dict(), pt)
+    torch.save(vit.state_dict(), pth)
+    return pt, pth
+
+
+def _both(tmp_path, argv_tail, name):
+    """Run the port's CLI and JAX's on the same arguments; the two
+    output dirs."""
+    a, b = str(tmp_path / f"port_{name}"), str(tmp_path / f"jax_{name}")
+    assert export.main(argv_tail(a)) == a
+    assert jexport.main(argv_tail(b)) == b
+    return a, b
+
+
+def _same_files(a, b):
+    for name in ("meta.json", "params.msgpack"):
+        with open(f"{a}/{name}", "rb") as f, open(f"{b}/{name}", "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def _check_detect(path):
+    blob = np.random.default_rng(2).uniform(0, 1, (2, 3, 64, 64)) \
+        .astype(np.float32)
+    port, ref = Engine(path, device="cpu"), JEngine(path)
+    got = [t.float().numpy() for t in port(torch.from_numpy(blob))]
+    want = [np.asarray(a, np.float32) for a in ref(jnp.asarray(blob))]
+    np.testing.assert_array_equal(got[0], want[0])          # num_dets
+    assert int(got[0].sum()) > 0
+    np.testing.assert_allclose(got[1], want[1], atol=1e-2)  # bboxes
+    np.testing.assert_allclose(got[2], want[2], atol=1e-5)  # scores
+    np.testing.assert_array_equal(got[3], want[3])          # labels
+
+
+def _check_classify(path, quant):
+    imgs = np.random.default_rng(3).uniform(-1, 1, (3, 3, 32, 32)) \
+        .astype(np.float32)
+    port, ref = Engine(path, device="cpu"), JEngine(path)
+    got = port(torch.from_numpy(imgs)).float().numpy()
+    want = np.asarray(ref(jnp.asarray(imgs)), np.float32)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    if quant is None:
+        np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-4)
+        return
+    moved = port(torch.from_numpy(
+        np.nextafter(imgs, np.float32(2)))).float().numpy()
+    bar = INT8_ULP_FACTOR * float(np.abs(moved - got).max())
+    assert float(np.abs(got - want).max()) <= bar
+
+
+DETECT_CASES = {"f32": [], "bf16": ["--param-dtype", "bfloat16"],
+                "f16": ["--param-dtype", "float16"]}
+
+
+@pytest.mark.parametrize("case", list(DETECT_CASES))
+def test_detect_matches_jax(ckpts, tmp_path, case):
+    a, b = _both(tmp_path, lambda out: ["detect", "--weights", ckpts[0],
+                                        "--out", out] + DET_ARGS
+                 + DETECT_CASES[case], case)
+    _same_files(a, b)
+    _check_detect(a)
+
+
+CLASSIFY_CASES = {"float": ([], None), "w8": (["--quant"], "w8"),
+                  "w8a": (["--quant", "w8a"], "w8a"),
+                  "f16": (["--param-dtype", "float16"], None)}
+
+
+@pytest.mark.parametrize("case", list(CLASSIFY_CASES))
+def test_classify_matches_jax(ckpts, tmp_path, case):
+    flags, quant = CLASSIFY_CASES[case]
+    a, b = _both(tmp_path, lambda out: ["classify", "--weights", ckpts[1],
+                                        "--out", out, "--model", VIT_MODEL]
+                 + flags, case)
+    _same_files(a, b)
+    meta, _ = read_engine(a)
+    assert meta["vit_spec"]["quant"] == (quant or "none")
+    assert meta["vit_spec"]["attn_impl"] == ("fused" if quant == "w8a"
+                                             else "xla")
+    _check_classify(a, quant)
+
+
+@pytest.mark.parametrize("quant,param_dtype", [(None, None),
+                                               ("w8a", "bfloat16")])
+def test_two_stage_matches_jax(ckpts, tmp_path, quant, param_dtype):
+    """Each CLI merges its own detect and classify engines (equal, by the
+    tests above); the merged dirs are equal and serve equally: every
+    output at the bars above with the float ViT; with the w8a ViT the
+    detections and class labels (its class scores move as its logits
+    do, see INT8_ULP_FACTOR)."""
+    dirs = {}
+    for side, main in (("port", export.main), ("jax", jexport.main)):
+        det, cls, two = (str(tmp_path / f"{side}_{n}")
+                         for n in ("det", "cls", "two"))
+        main(["detect", "--weights", ckpts[0], "--out", det] + DET_ARGS)
+        main(["classify", "--weights", ckpts[1], "--out", cls, "--model",
+              VIT_MODEL] + (["--quant", quant] if quant else []))
+        argv = ["two-stage", "--detect-engine", det, "--classify-engine",
+                cls, "--out", two, "--budget", "2"]
+        main(argv + (["--param-dtype", param_dtype] if param_dtype else []))
+        dirs[side] = two
+    _same_files(dirs["port"], dirs["jax"])
+    meta, _ = read_engine(dirs["port"])
+    assert meta["classify_budget"] == 2 and meta["kind"] == "two_stage"
+    frames = np.random.default_rng(4).integers(0, 256, (3, 64, 64, 3),
+                                               np.uint8)
+    port, ref = Engine(dirs["port"], device="cpu"), JEngine(dirs["port"])
+    got = dict(zip(TWO_STAGE_OUTPUTS,
+                   (t.float().numpy() for t in port(torch.from_numpy(frames)))))
+    want = dict(zip(TWO_STAGE_OUTPUTS, (np.asarray(a, np.float32)
+                                        for a in ref(jnp.asarray(frames)))))
+    assert int(want["final_valid"].sum()) > 0
+    for k in ("num_dets", "det_labels", "final_valid", "cls_labels"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    bars = (("boxes", 1e-2), ("det_scores", 1e-5)) + \
+        ((("cls_scores", 1e-4),) if quant is None else ())
+    for k, tol in bars:
+        np.testing.assert_allclose(got[k], want[k], atol=tol, err_msg=k)
+
+
+def _structure(path):
+    meta, tree = read_engine(path)
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                out[prefix + (k,)] = (tuple(v.shape), str(v.dtype))
+    walk(tree, ())
+    return meta, out
+
+
+@pytest.mark.parametrize("argv", [
+    ["detect"] + DET_ARGS,
+    ["classify", "--model", VIT_MODEL],
+    ["classify", "--model", VIT_MODEL, "--quant", "w8a"],
+], ids=["detect", "classify", "classify_w8a"])
+def test_random_init_matches_jax_layout(tmp_path, argv):
+    a, b = _both(tmp_path, lambda out: argv + ["--out", out], "init")
+    meta_a, leaves_a = _structure(a)
+    meta_b, leaves_b = _structure(b)
+    assert meta_a == meta_b
+    assert leaves_a == leaves_b
+
+
+def test_bad_merge_refused(ckpts, tmp_path):
+    det = export.main(["detect", "--weights", ckpts[0], "--out",
+                       str(tmp_path / "det")] + DET_ARGS)
+    for pair in ((det, det), (str(tmp_path / "x"), det)):
+        if pair[0] != det:
+            export.main(["classify", "--out", pair[0], "--model", VIT_MODEL])
+        with pytest.raises(ValueError,
+                           match="merge needs a detect engine and a "
+                                 "classify engine"):
+            merge_two_stage_engine(str(tmp_path / "two"), *pair)
+        with pytest.raises(ValueError,
+                           match="merge needs a detect engine and a "
+                                 "classify engine"):
+            jexport.main(["two-stage", "--detect-engine", pair[0],
+                          "--classify-engine", pair[1], "--out",
+                          str(tmp_path / "jtwo")])
+
+
+@pytest.mark.parametrize("flag", [["--stablehlo", "x"], ["--aot", "1"],
+                                  ["--compiled", "1"],
+                                  ["--aot-platform", "cpu"],
+                                  ["--aot-dtype", "float32"]],
+                         ids=lambda f: f[0])
+def test_aot_flags_refused(tmp_path, flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        export.main(["detect", "--out", str(tmp_path / "d")] + flag)
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err

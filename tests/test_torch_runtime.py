@@ -210,11 +210,11 @@ def test_engine_two_stage_from_port_writer_matches_jax(params, frames,
     np.testing.assert_array_equal(port(frames).numpy(), got["cls_labels"])
 
 
-@pytest.mark.parametrize("param_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("param_dtype", [None, "bfloat16", "float16"])
 def test_save_engine_bytes_match_flax(params, tmp_path, param_dtype):
     """The port's writer emits what flax.serialization.to_bytes emits for
-    the same tree (int8 leaves kept, floats stored bf16 on request), and
-    meta.json as JAX's save_engine writes it."""
+    the same tree (int8 leaves kept, floats stored bf16 or f16 on
+    request), and meta.json as JAX's save_engine writes it."""
     tree = {"vit": _vit_tree(params, "w8"), "n": np.arange(5, dtype=np.int32),
             "empty": {}}
     a, b = str(tmp_path / "port"), str(tmp_path / "jax")

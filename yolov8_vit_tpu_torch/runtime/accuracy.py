@@ -4,7 +4,8 @@ Runs every image through two independent implementations of the whole
 two-stage flow, the fused pipeline (models/two_stage.py) and the host
 route (serve/infer.py: host letterbox, Engine calls, host NMS), and
 reports detection-count agreement, greedy-matched box IoU, and class
-agreement.
+agreement; and which frames' kept sets hinge on an f32 area tie, so
+that a comparison can leave them out.
 """
 from __future__ import annotations
 
@@ -131,3 +132,40 @@ def compare_fused_vs_host(det_params, vit_params, cfg, vit_spec, paths,
             "detections": total, "matched": len(ious),
             "mean_iou": float(np.mean(ious)) if ious else 0.0,
             "class_agree": agree}
+
+
+def hinges_on_area_tie(boxes, scores, cfg) -> bool:
+    """Whether one frame's stage-2 NMS depends on float width: the host
+    route's area-sorted NMS (serve/infer.py, as the JAX package's host
+    route computes it) on the frame's clipped stage-1 rows keeps another
+    count with areas in f64 than in f32.  Where boxes share a size their
+    areas tie exactly in f32 (the device's kernel B: ties to the lowest
+    row) and differ in their last digits in f64; where the greedy order
+    then decides the kept set, an f32 result can rightly differ from
+    another run whose boxes moved by an ulp."""
+    from yolov8_vit_tpu_torch.serve import infer
+    keep = scores > cfg.conf_second
+    wide = infer._area_nms_host(boxes[keep].astype(np.float64), scores[keep],
+                                cfg.custom_nms_iou)
+    narrow = infer._area_nms_host(boxes[keep].astype(np.float32),
+                                  scores[keep], cfg.custom_nms_iou)
+    return len(wide) != len(narrow)
+
+
+def area_tie_frames(det_engine, paths) -> list[str]:
+    """The names of the frames, read from `paths` and run through the
+    detect Engine `det_engine` (its four outputs selected, in
+    DETECT_OUTPUTS order), whose stage-2 NMS hinges on an f32 area tie
+    (`hinges_on_area_tie`)."""
+    from yolov8_vit_tpu_torch.serve import imageio, infer
+    out = []
+    cfg = det_engine.det_cfg
+    for path in paths:
+        rgb = imageio.imread_rgb(path)
+        x = rgb.transpose(2, 0, 1)[None].astype(np.float32) / 255.0
+        num, bb, sc, _ = (infer._np(t) for t in det_engine(x))
+        n = int(num.reshape(-1)[0])
+        bb = bb.reshape(-1, 4)[:n].clip(0, [rgb.shape[1], rgb.shape[0]] * 2)
+        if hinges_on_area_tie(bb, sc.reshape(-1)[:n], cfg):
+            out.append(os.path.basename(path))
+    return out

@@ -16,6 +16,8 @@ The same API and output contracts as the JAX package's
               "output", the logits.
   "two_stage" the whole pipeline on uint8 RGB frames (NHWC, or NCHW);
               outputs the TwoStagePipeline dict (TWO_STAGE_OUTPUTS).
+              Built from a detect and a classify engine by
+              `merge_two_stage_engine`.
 
 An input whose second axis is 1 or 3 and whose last is not is taken as
 NCHW and moved to NHWC.  Parameters stay in their stored dtypes; `dtype`
@@ -37,11 +39,34 @@ from yolov8_vit_tpu_torch.models.vit import ViTClassifier, ViTSpec
 from yolov8_vit_tpu_torch.models.yolov8 import YOLOv8, detect_spec
 from yolov8_vit_tpu_torch.runtime.detector import decode_predictions
 from yolov8_vit_tpu_torch.weights import load_pipeline_tree, load_tree, \
-    read_engine
+    read_engine, save_engine
 
 DETECT_OUTPUTS = ("num_dets", "bboxes", "scores", "labels")
 TWO_STAGE_OUTPUTS = ("num_dets", "boxes", "det_scores", "det_labels",
                      "final_valid", "cls_labels", "cls_scores")
+
+
+def merge_two_stage_engine(out_path: str, detect_engine: str,
+                           classify_engine: str,
+                           classify_budget: int = 4,
+                           param_dtype=None) -> str:
+    """Combine a detect engine and a classify engine into one two_stage
+    engine dir, which runs the whole pipeline on uint8 frames: the JAX
+    package's `merge_two_stage_engine`, with the same meta and tree
+    ({"det": detect tree, "vit": classify tree})."""
+    meta_d, params_d = read_engine(detect_engine)
+    meta_c, params_c = read_engine(classify_engine)
+    if meta_d.get("kind") != "detect" or meta_c.get("kind") != "classify":
+        raise ValueError("merge needs a detect engine and a classify engine")
+    meta = {"detect_cfg": meta_d.get("detect_cfg", {}),
+            "vit_spec": meta_c.get("vit_spec", {}),
+            "num_classes": meta_c.get("num_classes", 5),
+            "classify_budget": classify_budget}
+    if "det_spec" in meta_d:      # custom depth / width scales
+        meta["det_spec"] = meta_d["det_spec"]
+    return save_engine(out_path, "two_stage",
+                       {"det": params_d, "vit": params_c}, meta,
+                       param_dtype=param_dtype)
 
 
 def _maybe_nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:

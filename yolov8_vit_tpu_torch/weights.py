@@ -196,24 +196,31 @@ def write_msgpack(tree) -> bytes:
     return b"".join(out)
 
 
+_STORE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
 def save_engine(path: str, kind: str, params: dict, meta: dict,
                 param_dtype=None) -> str:
     """Write an engine directory the JAX package's `Engine` (and the
     port's) loads: meta.json with `kind`, params.msgpack.  As the JAX
-    `save_engine`: param_dtype="bfloat16" stores every floating leaf in
-    bf16 (integer leaves untouched) and records `param_store_dtype`."""
+    `save_engine`: param_dtype "bfloat16" or "float16" stores every
+    floating leaf in that dtype (integer leaves untouched) and records
+    `param_store_dtype`."""
     os.makedirs(path, exist_ok=True)
     meta = dict(meta, kind=kind)
     if param_dtype is not None:
-        if str(param_dtype).replace("torch.", "") != "bfloat16":
-            raise ValueError(f"param_dtype {param_dtype!r}: only bfloat16")
-        meta["param_store_dtype"] = "bfloat16"
+        name = str(param_dtype).replace("torch.", "")
+        if name not in _STORE_DTYPES:
+            raise ValueError(f"param_dtype {param_dtype!r}: bfloat16 or "
+                             f"float16")
+        meta["param_store_dtype"] = name
+        store = _STORE_DTYPES[name]
 
         def walk(node):          # sorted keys, as jax.tree.map returns
             if isinstance(node, dict):
                 return {k: walk(node[k]) for k in sorted(node)}
             t = as_tensor(node)
-            return t.to(torch.bfloat16) if t.is_floating_point() else t
+            return t.to(store) if t.is_floating_point() else t
 
         params = walk(params)
     with open(os.path.join(path, "meta.json"), "w") as f:
@@ -341,26 +348,41 @@ def _reset(module: nn.Module, gen: torch.Generator) -> None:
             mod.reset(gen)
 
 
-def init_tree(pipeline, seed: int = 0) -> dict:
-    """Random two-stage parameters made on the CPU from `seed`, with flax's
-    initializers (truncated lecun-normal kernels, zero biases, the detect
-    head's bias priors, N(0, .02) pos-embed).  For a w8 / w8a ViT the
-    weights are drawn in f32 and then pre-quantized (prequantize_tree with
-    the MLP suffixes, and the attention ones for w8a), as a real engine is
-    built: an int8 tree initialized directly would hold all-zero kernels.
-    "none" and "dynamic" share the float layout."""
-    from yolov8_vit_tpu_torch.models.vit import ViTClassifier
+def init_detect_tree(spec, gen: torch.Generator) -> dict:
+    """Random YOLOv8 (fused-BN layout) variables {"params": tree} for a
+    YOLOv8Spec, drawn on the CPU from `gen` with flax's initializers
+    (truncated lecun-normal kernels, zero biases, the detect head's bias
+    priors)."""
     from yolov8_vit_tpu_torch.models.yolov8 import YOLOv8
-    gen = torch.Generator().manual_seed(seed)
-    det = YOLOv8(pipeline.det.spec)
+    det = YOLOv8(spec)
     _reset(det, gen)
-    spec = pipeline.vit_spec
-    vit = ViTClassifier(dataclasses.replace(spec, quant="none"),
-                        pipeline.num_classes)
+    return {"params": module_tree(det)}
+
+
+def init_vit_tree(spec, num_classes: int, gen: torch.Generator) -> dict:
+    """Random ViTClassifier variables {"params": tree}, drawn on the CPU
+    from `gen` (truncated lecun-normal kernels, zero biases, N(0, .02)
+    pos-embed).  For a w8 / w8a spec the weights are drawn in f32 and then
+    pre-quantized (prequantize_tree with the MLP suffixes, and the
+    attention ones for w8a), as a real engine is built: an int8 tree
+    initialized directly would hold all-zero kernels.  "none" and
+    "dynamic" share the float layout."""
+    from yolov8_vit_tpu_torch.models.vit import ViTClassifier
+    vit = ViTClassifier(dataclasses.replace(spec, quant="none"), num_classes)
     _reset(vit, gen)
-    vit_tree = module_tree(vit)
+    tree = module_tree(vit)
     if spec.quant == "w8a":
-        vit_tree = prequantize_tree(vit_tree, MLP_AND_ATTN_SUFFIXES)
+        tree = prequantize_tree(tree, MLP_AND_ATTN_SUFFIXES)
     elif spec.quant == "w8":
-        vit_tree = prequantize_tree(vit_tree, MLP_SUFFIXES)
-    return {"det": {"params": module_tree(det)}, "vit": {"params": vit_tree}}
+        tree = prequantize_tree(tree, MLP_SUFFIXES)
+    return {"params": tree}
+
+
+def init_tree(pipeline, seed: int = 0) -> dict:
+    """Random two-stage parameters made on the CPU from `seed`: the
+    detector's (`init_detect_tree`), then the ViT's (`init_vit_tree`)
+    from one generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"det": init_detect_tree(pipeline.det.spec, gen),
+            "vit": init_vit_tree(pipeline.vit_spec, pipeline.num_classes,
+                                 gen)}
