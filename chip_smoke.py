@@ -167,7 +167,23 @@ Phases (any failure exits non-zero):
      (F32_TOL), classExport -> buildInferModel.  Each process run through
      RUN_MODULE (runpy, as `python3 -m` runs a module) prints its launch
      counts when it ends.
-Each path of phases 5-8, 11, 12 and 14-16 is driven with every launch count
+  17. the host decoder and the mesh layer: (a) `native_status()`; phase
+     12's 32 frames as .bmp, .png, .jpg and .ppm, `native.decode_image`
+     against `imageio.imread_rgb` for each format the library decodes
+     (JPEG within DECODE_JPEG_BAR), `load_letterbox_batch` at 480 x 640
+     (geometry, pad 114, pixels within LETTERBOX_BAR of
+     `imageio.resize_linear`); the main path from the BMP files through
+     `BatchRunner.run_paths` with the library and without (decode_ms of
+     each, the same results), and the service's fused `POST /` of the 32
+     URLs with each; (b) `BatchRunner(mesh=local_mesh())` over nccl at
+     world 1 bit-equal to phase 5's runner, its fused step against phase
+     5's; (c) one ViT-B/8 f32 step through `ViTTrainer(mesh=...)` and one
+     YOLOv8-s step at batch 16 through `make_yolo_train_step(mesh=...)` at
+     world 1 against the meshless steps (TRAIN_STEP_TOL); (d) world 2 on
+     the one card over gloo, where gloo carries CUDA tensors:
+     `dryrun_multichip(2)` and the ViT-B/8 step at n_model 2 and at
+     n_data 2 against the meshless step (else why not, printed).
+Each path of phases 5-8, 11, 12 and 14-17 is driven with every launch count
 set to 0 just before it and read just after: its kernels must have
 launched, and the kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
@@ -357,16 +373,19 @@ def _ptxas_summary(log: str) -> list[str]:
 
 
 def _time_ms(fn, reps: int) -> float:
+    """CUDA events around `reps` calls after a warm call; the barrier
+    (`utils.profiling.device_barrier`, its sum launched after the end
+    event) waits for the calls."""
     import torch
-    fn()
-    torch.cuda.synchronize()
+    from yolov8_vit_tpu_torch.utils.profiling import device_barrier
+    device_barrier(fn())
     start, end = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
-    torch.cuda.synchronize()
+    device_barrier(out)
     return start.elapsed_time(end) / reps
 
 
@@ -1437,14 +1456,15 @@ def profile_parts(torch, fn, parts: dict, calls: int = 3,
     never shows."""
     import re
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    from yolov8_vit_tpu_torch.utils.profiling import device_barrier
+    device_barrier(fn())
     for attempt in range(tries):
         reps = calls * 4 ** attempt
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
+            # no tensor named: a synchronize, no kernel in the session
+            device_barrier(())
         ka = prof.key_averages()
         attr = ("self_cuda_time_total"
                 if len(ka) and not hasattr(ka[0], "self_device_time_total")
@@ -2840,7 +2860,7 @@ def detector_train_phase(torch, ops, np, smi: str, tree: dict, vit_spec,
             opt.count = count
             grads = _clipped_grads(opt, named)
             step = yt.make_yolo_train_step(model, opt, hw, cfg.reg_max,
-                                           cfg.strides)
+                                           strides=cfg.strides)
             with _tf32_default(torch):
                 loss, _ = step(*(a.to(device) for a in two))
             return (step, float(loss), {n: g.cpu() for n, g in grads.items()},
@@ -3646,6 +3666,364 @@ def checkpoint_phase(torch, ops, np, smi: str, b16_runner, b16_tree: dict,
     return out
 
 
+# phase 17: the host decoder (runtime/native.py) on the served path from
+# files, the mesh layer (parallel/) at world 1 over nccl and, where gloo
+# carries CUDA tensors, at world 2 on the one card
+DECODE_JPEG_BAR = 2       # libjpeg's IDCT against PIL's (tests/test_native.py:36)
+LETTERBOX_BAR = 1         # the library's bilinear against cv2's (test_native.py:54-68)
+
+
+def _gloo_cuda_probe(rank, n, dev) -> dict:
+    """Spawned: all-reduce, broadcast and all-gather of CUDA tensors over
+    gloo -> {collective: None or the error}."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("broadcast", lambda t: dist.broadcast(t, src=0)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(n)], t))):
+        t = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            fn(t)
+            torch.cuda.synchronize()
+            out[name] = None
+        except (RuntimeError, ValueError) as e:
+            out[name] = repr(e)[:300]
+    return out
+
+
+def _mesh_vit_step(rank, n, dev, crops, onehot, n_data) -> dict:
+    """Spawned: one ViT-B/8 f32 step (an epoch of one batch) over a mesh
+    of n_data x n / n_data (the rows split over "data", the gradients
+    averaged over it; the ViT split over "model") -> rank 0's loss and
+    whole params tree."""
+    from yolov8_vit_tpu_torch.config import CFG
+    from yolov8_vit_tpu_torch.models.vit import VIT_B8_224
+    from yolov8_vit_tpu_torch.parallel import make_mesh
+    from yolov8_vit_tpu_torch.train.vit_train import ViTTrainer
+    mesh = make_mesh(n_data=n_data, n_model=n // n_data)
+    trainer = ViTTrainer(CFG(), VIT_B8_224, mesh, log_fn=lambda *a: None,
+                         device=dev)
+    model, opt = trainer.init()
+    loss, _ = trainer.train_one_epoch(model, opt, [(crops, onehot)], 0)
+    tree = trainer.params_tree(model)
+    return {"loss": loss, "params": tree if rank == 0 else None}
+
+
+def _tree_max_abs(a: dict, b: dict) -> float:
+    if isinstance(a, dict):
+        return max(_tree_max_abs(a[k], b[k]) for k in a)
+    return float((a.float() - b.float()).abs().max())
+
+
+def host_decode_mesh_phase(torch, ops, np, smi: str, b16_runner,
+                           b16_tree: dict, frames) -> dict:
+    """Phase 17.  (a) the host decoder: native_status; phase 12's 32
+    frames as .jpg, .png and .bmp: decode_image against imageio.imread_rgb
+    (PNG, BMP, PPM equal; JPEG within DECODE_JPEG_BAR) where the library
+    decodes the format, None where it does not; load_letterbox_batch at
+    480 x 640 (letterbox_params' geometry, pad 114, pixels within
+    LETTERBOX_BAR of imageio.resize_linear); the main path from the BMP
+    files through BatchRunner.run_paths with the library (A-D launched,
+    none of E-J) and without (`decode_image` answering None): the same
+    results, decode_ms of each; the service's fused POST / of the 32 BMP
+    URLs with each.  (b) BatchRunner(mesh=local_mesh()) over nccl at world
+    1 on phase 5's pipeline and frames: results bit-equal to phase 5's
+    runner, A-D launched and none of E-J, the fused step timed against the
+    meshless one.  (c) one ViT-B/8 f32 step through ViTTrainer(mesh=...)
+    and one YOLOv8-s step at batch 16 through make_yolo_train_step(mesh=)
+    at world 1, each against the meshless step (TRAIN_STEP_TOL).  (d)
+    world 2 on the one card over gloo, if gloo carries CUDA tensors:
+    dryrun_multichip(2) and the ViT-B/8 step at n_model 2 and at n_data 2
+    against the meshless step (TRAIN_STEP_TOL); else why not.  The steps at world 1 run
+    the trainers' data-parallel code (the rows split over a data axis of
+    1, the gradients all-reduced over it), the meshless ones their plain
+    code."""
+    import functools
+    import http.server
+    import threading
+    import torch.distributed as dist
+    from yolov8_vit_tpu_torch.config import CFG, DetectConfig
+    from yolov8_vit_tpu_torch.models.vit import VIT_B8_224
+    from yolov8_vit_tpu_torch.ops.letterbox import letterbox_params
+    from yolov8_vit_tpu_torch.parallel import init_multihost, local_mesh
+    from yolov8_vit_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+    from yolov8_vit_tpu_torch.runtime import native
+    from yolov8_vit_tpu_torch.serve import imageio
+    from yolov8_vit_tpu_torch.serve.app import build_default_service
+    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+    from yolov8_vit_tpu_torch.train import yolo_train as yt
+    from yolov8_vit_tpu_torch.train.augment import eval_transform
+    from yolov8_vit_tpu_torch.train.vit_train import ViTTrainer
+    from yolov8_vit_tpu_torch.utils.densify import make_cover_scenes
+    from yolov8_vit_tpu_torch.weights import module_tree, save_engine
+    out: dict = {"card": smi, "native_status": native.native_status(),
+                 "formats": native.decoded_formats()}
+    print(f"phase 17 host decoder: {out['native_status']}", flush=True)
+    root = os.path.join(ENGINE_DIR, "host_decode")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    servers = []
+    real = native.decode_image
+
+    def no_lib(path):            # the library absent: imageio decodes
+        return None
+    try:
+        # ---- (a) the host decoder ---------------------------------------------
+        imgs, _ = make_cover_scenes(np.random.default_rng(12), BATCH,
+                                    (640, 640), lam=1.5)
+        paths = {}
+        for ext in ("bmp", "png", "jpg", "ppm"):
+            paths[ext] = []
+            for i, img in enumerate(imgs):
+                p_ = os.path.join(root, f"cam{i:02d}.{ext}")
+                if ext == "ppm":
+                    with open(p_, "wb") as f:
+                        f.write(b"P6 640 640 255\n" + img.tobytes())
+                else:
+                    imageio.imwrite(p_, imageio.bgr2rgb(img))
+                paths[ext].append(p_)
+        fmt = {"bmp": "bmp", "png": "png", "jpg": "jpeg", "ppm": "ppm"}
+        decode = {}
+        for ext, ps in paths.items():
+            t0 = time.perf_counter()
+            got = [native.decode_image(p_) for p_ in ps]
+            ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ref = [imageio.imread_rgb(p_) for p_ in ps]
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            if fmt[ext] not in out["formats"]:
+                if any(g is not None for g in got):
+                    raise AssertionError(f"native: {ext} decoded without "
+                                         f"its library")
+                decode[ext] = {"library": False, "imageio_ms": ref_ms}
+                continue
+            err = max(int(np.abs(g.astype(int) - r.astype(int)).max())
+                      for g, r in zip(got, ref))
+            if err > (DECODE_JPEG_BAR if ext == "jpg" else 0):
+                raise AssertionError(f"native: {ext} decode differs from "
+                                     f"imageio by {err}")
+            decode[ext] = {"library": True, "max_abs_err": err,
+                           "library_ms": ms, "imageio_ms": ref_ms}
+        out["decode_32"] = decode
+        out_hw = (480, 640)
+        batch, geom, ok = native.load_letterbox_batch(paths["bmp"], out_hw)
+        nh, nw, r, dw, dh, top, left = letterbox_params((640, 640), out_hw)
+        if not ok.all() or not np.allclose(geom, [r, dw, dh]):
+            raise AssertionError(f"load_letterbox_batch: ok {ok}, geometry "
+                                 f"{geom[0]} against {(r, dw, dh)}")
+        pad = np.ones(batch.shape[1:3], bool)
+        pad[top:top + nh, left:left + nw] = False
+        if not (batch[:, pad] == 114).all():
+            raise AssertionError("load_letterbox_batch: pad is not 114")
+        lb_err = max(int(np.abs(batch[i, top:top + nh, left:left + nw]
+                                .astype(int) - imageio.resize_linear(
+                                    imgs[i], (nw, nh)).astype(int)).max())
+                     for i in range(BATCH))
+        if lb_err > LETTERBOX_BAR:
+            raise AssertionError(f"load_letterbox_batch: {lb_err} from "
+                                 f"imageio.resize_linear")
+        out["letterbox"] = {"out_hw": out_hw, "max_abs_err": lb_err}
+
+        # the main path from files, with and without the library
+        runner = b16_runner
+        runner.run_paths(paths["bmp"][:2])                        # warm
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        prof_lib: dict = {}
+        with_lib = runner.run_paths(paths["bmp"], profile=prof_lib)
+        torch.cuda.synchronize()
+        out["files_launches"] = _path_launches(ops, "files_native",
+                                               A_B + C_D, E_F)
+        prof_io: dict = {}
+        native.decode_image = no_lib
+        try:
+            without = runner.run_paths(paths["bmp"], profile=prof_io)
+        finally:
+            native.decode_image = real
+        for a, b in zip(with_lib, without):
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"run_paths with and without the "
+                                         f"library: {k} differs")
+        if sum(r_["num_dets"] for r_ in with_lib) == 0:
+            raise AssertionError("run_paths: no detections")
+        out["run_paths_profile_ms"] = {"library": prof_lib,
+                                       "imageio": prof_io}
+
+        # the service's fused POST / with each decoder
+        det_dir = save_engine(
+            os.path.join(root, "detect"), "detect", b16_tree["det"],
+            {"detect_cfg": dataclasses.asdict(DetectConfig())})
+        cls_dir = save_engine(
+            os.path.join(root, "classify"), "classify", b16_tree["vit"],
+            {"vit_spec": dataclasses.asdict(b16_runner.pipeline.vit_spec),
+             "num_classes": 5})
+
+        class Quiet(http.server.SimpleHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+        def serve(httpd):
+            servers.append(httpd)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        files = serve(http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Quiet, directory=root)))
+        body = {"urls": [{f"img{i}": f"{files}/{os.path.basename(p_)}"}
+                         for i, p_ in enumerate(paths["bmp"])]}
+        svc = build_default_service(os.path.join(root, "work"), det_dir,
+                                    cls_dir, enable_retrain=False,
+                                    fused=True)
+        base = serve(svc.make_http_server("127.0.0.1", 0))
+        _http_json(base + "/", body)                                # warm
+        secs: dict = {"library": [], "imageio": []}
+        rows: dict = {}
+        for turn in ("library", "imageio", "imageio", "library"):
+            native.decode_image = real if turn == "library" else no_lib
+            try:
+                t0 = time.perf_counter()
+                rows[turn] = _http_json(base + "/", body)
+                secs[turn].append(time.perf_counter() - t0)
+            finally:
+                native.decode_image = real
+        if rows["library"] != rows["imageio"] or not rows["library"]:
+            raise AssertionError("service: POST / rows differ between the "
+                                 "two decoders")
+        out["fused_request_s"] = secs
+        print(f"phase 17 on {smi}: decode of 32 BMP frames (640 x 640) "
+              f"{json.dumps(decode['bmp'])}; run_paths decode_ms library "
+              f"{prof_lib['decode_ms']:.1f} imageio "
+              f"{prof_io['decode_ms']:.1f}; fused POST / of 32 URLs "
+              f"{json.dumps(secs)} s", flush=True)
+
+        # ---- (b) a mesh of 1 over nccl -----------------------------------------
+        # rendezvous through a file: no port for another process to take
+        init_multihost("file://" + os.path.join(root, "pg_store"), 1, 0,
+                       device="cuda")
+        try:
+            mesh = local_mesh()
+            meshed = BatchRunner(b16_runner.pipeline, max_batch=BATCH,
+                                 mesh=mesh)
+            crowded, _ = make_cover_scenes(np.random.default_rng(17), BATCH,
+                                           (640, 640), lam=5.0)
+            dev_batches = [frames, torch.from_numpy(crowded).to("cuda")]
+            want = b16_runner.run_device_batches(dev_batches)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            got = meshed.run_device_batches(dev_batches)
+            torch.cuda.synchronize()
+            out["mesh1_launches"] = _path_launches(ops, "mesh_of_1",
+                                                   A_B + C_D, E_F)
+            for ra, rb in zip(got, want):
+                for a, b in zip(ra, rb):
+                    for k in a:
+                        if not np.array_equal(a[k], b[k]):
+                            raise AssertionError(f"mesh of 1: {k} differs "
+                                                 f"from phase 5's runner")
+            step = {"plain": [], "mesh": []}
+            for turn in ("plain", "mesh", "mesh", "plain"):
+                r_ = b16_runner if turn == "plain" else meshed
+                step[turn].append(_time_ms(lambda: r_._fn(frames), 5))
+            out["mesh1_fused_step_ms"] = step
+
+            # ---- (c) the trainers at world 1 -----------------------------------
+            cfg = CFG()
+            rng = np.random.default_rng(14)
+            crops = torch.from_numpy(np.stack([eval_transform(rng.integers(
+                0, 256, (int(h), int(w), 3), dtype=np.uint8))
+                for h, w in rng.integers(120, 400, (2, 2))]))
+            onehot = torch.from_numpy(np.eye(cfg.num_classes, dtype=np.float32)[
+                rng.integers(0, cfg.num_classes, 2)])
+            res = {}
+            for side, m in (("plain", None), ("mesh", mesh)):
+                tr = ViTTrainer(cfg, VIT_B8_224, m, log_fn=lambda *a: None,
+                                device="cuda")
+                model, opt = tr.init()
+                loss, _ = tr.train_one_epoch(model, opt, [(crops, onehot)],
+                                             0)
+                res[side] = (loss, tr.params_tree(model))
+                del model, opt
+            vit = {"loss_rel": abs(res["mesh"][0] - res["plain"][0])
+                   / abs(res["plain"][0]),
+                   "param_abs": _tree_max_abs(res["mesh"][1],
+                                              res["plain"][1])}
+            plain_vit = res["plain"]
+            del res
+            cfg_s = DetectConfig(variant="s")
+            rng = np.random.default_rng(15)
+            yb = DET_TRAIN_BATCH
+            imgs_y = torch.from_numpy(rng.uniform(
+                0, 1, (yb, 640, 640, 3)).astype(np.float32)).cuda()
+            gt = torch.tensor([[[100.0, 120, 260, 300], [400, 380, 520, 560]]],
+                              device="cuda").repeat(yb, 1, 1)
+            labels = torch.zeros((yb, 2), dtype=torch.int64, device="cuda")
+            mask = torch.ones((yb, 2), dtype=torch.bool, device="cuda")
+            yres = {}
+            for side, m in (("plain", None), ("mesh", mesh)):
+                model = yt.build_train_model(cfg_s, None, "cuda")
+                named = dict(model.named_parameters())
+                opt = yt.make_yolo_optimizer(named, 1e-4, 1.0, 1, 100, 100)
+                opt.count = 200                   # past the warmup: lr 1e-4
+                step_fn = yt.make_yolo_train_step(model, opt, (640, 640),
+                                                  cfg_s.reg_max, mesh=m)
+                loss, _ = step_fn(imgs_y, gt, labels, mask)
+                yres[side] = (float(loss), module_tree(model))
+                del model, opt, named
+            yolo = {"loss_rel": abs(yres["mesh"][0] - yres["plain"][0])
+                    / abs(yres["plain"][0]),
+                    "param_abs": _tree_max_abs(yres["mesh"][1],
+                                               yres["plain"][1])}
+            del yres
+            torch.cuda.empty_cache()
+            for what, rep in (("ViT-B/8", vit), ("YOLOv8-s", yolo)):
+                if rep["loss_rel"] > TRAIN_STEP_TOL["loss_rel"] or \
+                        rep["param_abs"] > TRAIN_STEP_TOL["param_abs"]:
+                    raise AssertionError(f"mesh of 1: the {what} step "
+                                         f"{rep} beyond {TRAIN_STEP_TOL}")
+            out["mesh1_train_steps"] = {"vit_b8": vit, "yolov8s_b16": yolo}
+        finally:
+            dist.destroy_process_group()
+
+        # ---- (d) a world of 2 on the one card ---------------------------------
+        probe = spawn(_gloo_cuda_probe, 2, device="cuda", timeout=120)
+        refused = {k: v for p_ in probe for k, v in p_.items() if v}
+        if refused:
+            out["world2"] = {"ran": False, "why": refused}
+            print(f"phase 17 world 2: gloo refuses CUDA tensors "
+                  f"{json.dumps(refused)}; worlds above 1 held on the CPU "
+                  f"only", flush=True)
+        else:
+            t0 = time.perf_counter()
+            dry = dryrun_multichip(2, device="cuda", timeout=300)
+            steps = {}
+            for label, n_data in (("vit_b8_tp2", 1), ("vit_b8_dp2", 2)):
+                got = spawn(_mesh_vit_step, 2, crops, onehot, n_data,
+                            device="cuda", timeout=300)[0]
+                rep = {"loss_rel": abs(got["loss"] - plain_vit[0])
+                       / abs(plain_vit[0]),
+                       "param_abs": _tree_max_abs(got["params"],
+                                                  plain_vit[1])}
+                if rep["loss_rel"] > TRAIN_STEP_TOL["loss_rel"] or \
+                        rep["param_abs"] > TRAIN_STEP_TOL["param_abs"]:
+                    raise AssertionError(f"world 2: the ViT-B/8 step "
+                                         f"({label}) {rep} beyond "
+                                         f"{TRAIN_STEP_TOL}")
+                steps[label] = rep
+            out["world2"] = {"ran": True, "backend": "gloo", "dryrun": dry,
+                             **steps, "s": time.perf_counter() - t0}
+    finally:
+        native.decode_image = real
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -3844,6 +4222,14 @@ def main() -> int:
     _report(f"checkpoints to served engines "
             f"({time.perf_counter() - t0:.1f} s)", ckpt)
 
+    t0 = time.perf_counter()
+    host = host_decode_mesh_phase(torch, ops, np, smi, b16_runner, b16_tree,
+                                  paths["vit_b16_w8a"]["frames"])
+    paths["files_native"] = {"launches": host["files_launches"]}
+    paths["mesh_of_1"] = {"launches": host["mesh1_launches"]}
+    _report(f"host decoder and mesh layer ({time.perf_counter() - t0:.1f} s)",
+            host)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
     b16_frames = paths["vit_b16_w8a"].pop("frames")
@@ -3888,7 +4274,7 @@ def main() -> int:
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
-                   "checkpoints": ckpt,
+                   "checkpoints": ckpt, "host_decode_mesh": host,
                    "head_dims_wide_ms": wide_ms,
                    "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,

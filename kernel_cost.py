@@ -5,6 +5,7 @@ compared in one call.  From the repository root:
     python3 kernel_cost.py nms --load PATH [--tree OTHER_TREE]
     python3 kernel_cost.py region [--tree OTHER_TREE]
     python3 kernel_cost.py steps [--tree OTHER_TREE]
+    python3 kernel_cost.py serve [--tree OTHER_TREE]
 
 Both build chip_smoke.py phase 5's pipeline (YOLOv8-s at 640 x 640 and
 ViT-B/16 w8a, bf16, seed-0 weights with the head fitted to cover scenes)
@@ -42,6 +43,20 @@ phase functions on the timed tree's package): the ViT-B/16 w8a slice's
 and the float ViT-B/8 slice's fused step (`BatchRunner._fn` on 32
 frames, CUDA events over 20 calls after the phase's own drive), and the
 ViT-B/8 w8a, w8 and dynamic engines' steps (phase 7, 3 calls each).
+
+`serve`: the served path of chip_smoke.py phases 5 and 12 from files:
+phase 5's runner (`BatchRunner`, max_batch 32) on its 32 frames, the
+fused step three times (CUDA events over 20 calls each); the frames
+written as BMP files, `run_paths` over them three times after a warm
+call (its decode_ms each); the service (`build_default_service` on
+engines saved from phase 5's tree) answering `POST /` of the 32 BMP URLs
+on 127.0.0.1, three requests on the fused route and two on the host
+route, each after a warm request.  Each tree decodes as its runner does
+(a tree without runtime/native.py through serve/imageio.py).
+
+A tree from before `utils/profiling.py` is timed with this tree's copy of
+that module (chip_smoke.py's `_time_ms` and `profile_parts` call its
+`device_barrier`).
 
 Prints one JSON line, last, with the card's name and power limit (any
 profile chip_smoke.profile_parts retakes is printed before it).  Needs a
@@ -228,6 +243,94 @@ def steps(args) -> dict:
     return out
 
 
+# ---- serve -----------------------------------------------------------------
+def serve(args) -> dict:
+    import dataclasses
+    import functools
+    import http.server
+    import shutil
+    import threading
+    from yolov8_vit_tpu_torch.serve import imageio
+    from yolov8_vit_tpu_torch.serve.app import build_default_service
+    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+    from yolov8_vit_tpu_torch.weights import save_engine
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    pipe, tree, frames = _phase5()
+    runner = BatchRunner(pipe, max_batch=cs.BATCH)
+    runner.run_device_batches([frames])                       # warm
+    out = {"fused_step_ms": [cs._time_ms(lambda: runner._fn(frames), 20)
+                             for _ in range(3)]}
+    root = os.path.join(cs.ENGINE_DIR, "kernel_cost_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    servers = []
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    def start(httpd):
+        servers.append(httpd)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        names = [f"cam{i:02d}.bmp" for i in range(cs.BATCH)]
+        for name, img in zip(names, frames.cpu().numpy()):
+            imageio.imwrite(os.path.join(root, name), imageio.bgr2rgb(img))
+        paths = [os.path.join(root, n) for n in names]
+        runner.run_paths(paths[:2])                           # warm
+        out["decode_ms"] = []
+        for _ in range(3):
+            prof: dict = {}
+            runner.run_paths(paths, profile=prof)
+            out["decode_ms"].append(prof["decode_ms"])
+        det_dir = save_engine(
+            os.path.join(root, "detect"), "detect", tree["det"],
+            {"detect_cfg": dataclasses.asdict(DetectConfig())})
+        cls_dir = save_engine(
+            os.path.join(root, "classify"), "classify", tree["vit"],
+            {"vit_spec": dataclasses.asdict(pipe.vit_spec),
+             "num_classes": 5})
+        files = start(http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Quiet, directory=root)))
+        body = {"urls": [{f"img{i}": f"{files}/{n}"}
+                         for i, n in enumerate(names)]}
+        for route, fused, reps in (("fused", True, 3), ("host", False, 2)):
+            svc = build_default_service(os.path.join(root, f"work_{route}"),
+                                        det_dir, cls_dir,
+                                        enable_retrain=False, fused=fused)
+            base = start(svc.make_http_server("127.0.0.1", 0))
+            if not cs._http_json(base + "/", body):           # warm
+                raise AssertionError(f"{route} route: no detections")
+            secs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                cs._http_json(base + "/", body)
+                secs.append(time.perf_counter() - t0)
+            out[f"{route}_request_s"] = secs
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _profiling_shim() -> None:
+    """Give a timed tree without `utils/profiling.py` this tree's copy."""
+    import importlib.util
+    try:
+        import yolov8_vit_tpu_torch.utils.profiling  # noqa: F401
+    except ImportError:
+        name = "yolov8_vit_tpu_torch.utils.profiling"
+        spec = importlib.util.spec_from_file_location(name, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)),
+            "yolov8_vit_tpu_torch", "utils", "profiling.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+
+
 # ---- region ----------------------------------------------------------------
 def region(args) -> dict:
     from yolov8_vit_tpu_torch.ops import fused_region as fr
@@ -264,7 +367,9 @@ def main() -> int:
     mode.add_argument("--load", metavar="PATH")
     p_region = sub.add_parser("region", help="kernel J")
     p_steps = sub.add_parser("steps", help="the serving steps of phases 5-7")
-    for p in (p_nms, p_region, p_steps):
+    p_serve = sub.add_parser("serve", help="phase 5's step, decode and "
+                             "POST / from files")
+    for p in (p_nms, p_region, p_steps, p_serve):
         p.add_argument("--tree", metavar="DIR",
                        help="the tree whose package is timed")
     args = ap.parse_args()
@@ -274,7 +379,9 @@ def main() -> int:
         print("kernel_cost: no CUDA device", file=sys.stderr)
         return 2
     import yolov8_vit_tpu_torch as pkg
-    run = {"nms": nms, "region": region, "steps": steps}[args.kernels]
+    _profiling_shim()
+    run = {"nms": nms, "region": region, "steps": steps,
+           "serve": serve}[args.kernels]
     res = {"package": os.path.dirname(pkg.__file__), **run(args)}
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

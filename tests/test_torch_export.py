@@ -156,8 +156,8 @@ def test_two_stage_matches_jax(ckpts, tmp_path, quant, param_dtype):
     """Each CLI merges its own detect and classify engines (equal, by the
     tests above); the merged dirs are equal and serve equally: every
     output at the bars above with the float ViT; with the w8a ViT the
-    detections and class labels (its class scores move as its logits
-    do, see INT8_ULP_FACTOR)."""
+    detections and class labels, and the class scores of the kept boxes
+    (`_check_two_stage_scores`)."""
     dirs = {}
     for side, main in (("port", export.main), ("jax", jexport.main)):
         det, cls, two = (str(tmp_path / f"{side}_{n}")
@@ -186,6 +186,49 @@ def test_two_stage_matches_jax(ckpts, tmp_path, quant, param_dtype):
         ((("cls_scores", 1e-4),) if quant is None else ())
     for k, tol in bars:
         np.testing.assert_allclose(got[k], want[k], atol=tol, err_msg=k)
+    if quant is not None:
+        _check_two_stage_scores(port, ref, frames, got)
+
+
+def _check_two_stage_scores(port, ref, frames, got):
+    """The w8a engine's class scores of the kept boxes, held as
+    `_check_classify` holds w8a logits: within INT8_ULP_FACTOR times the
+    port's own change when its classifier's first float values (the int8
+    crops' token embeddings) move by one ulp, against JAX's classifier on
+    the same int8 crops.  JAX's fused pipeline is not the reference for
+    them: its classifier's scores move with the batch it runs in (the
+    pipeline's B x budget slots against the kept crops alone moved one
+    score by 4.5e-4, an int8 code flip where XLA's f32 rounding follows
+    the batch's shape), while the port's do not."""
+    from yolov8_vit_tpu_torch.ops.crop import crop_to_patches_i8
+    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+    kept = got["final_valid"] > 0
+    h, w = frames.shape[1:3]
+    slot_img, slot_box = np.nonzero(kept)[0], []
+    for i, j in zip(*np.nonzero(kept)):
+        slot_box.append(BatchRunner._host_inflate(
+            got["boxes"][i][j:j + 1], w, h)[0])
+    spec = port.model.vit_spec
+    crops = crop_to_patches_i8(torch.from_numpy(frames),
+                               torch.from_numpy(slot_img),
+                               torch.from_numpy(np.stack(slot_box)),
+                               (spec.img_size, spec.img_size), spec.patch)
+    logits = np.asarray(ref.model.classifier.apply(
+        ref.params["vit"], jnp.asarray(crops.numpy())), np.float32)
+    z = np.exp(logits - logits.max(-1, keepdims=True))
+    want = (z / z.sum(-1, keepdims=True)).max(-1)
+    vit = port.model.vit.model
+    embed = vit.embed
+    vit.embed = lambda img, dtype: torch.nextafter(
+        embed(img, dtype), torch.tensor(np.inf, dtype=dtype))
+    try:
+        moved = port(torch.from_numpy(frames))[
+            TWO_STAGE_OUTPUTS.index("cls_scores")].float().numpy()
+    finally:
+        vit.embed = embed
+    bar = INT8_ULP_FACTOR * float(np.abs(moved - got["cls_scores"])[kept]
+                                  .max())
+    assert float(np.abs(got["cls_scores"][kept] - want).max()) <= bar
 
 
 def _structure(path):

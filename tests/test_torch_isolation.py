@@ -91,3 +91,54 @@ def test_chip_smoke_alone_refuses(tmp_path):
                          capture_output=True, text=True, timeout=120, env=env)
     assert run.returncode != 0
     assert '"ok": true' not in run.stdout
+
+
+def _code_strings(tree):
+    """String constants of a module's code (docstrings left out: they may
+    name the JAX module a port module counterparts)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_path_into_root_csrc_or_jax_package(path):
+    """No port module names a file of the root csrc/ (the JAX package's
+    host sources and their build) or of the JAX package: the host library
+    builds from the port's copy (yolov8_vit_tpu_torch/csrc/host/).  The
+    `file:line` citations of the TPU kernels in chip_smoke.py's report
+    ("replaces") are data, not paths the code opens."""
+    import re
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for s in _code_strings(tree):
+        if re.fullmatch(r"yolov8_vit_tpu/[\w/]+\.py:\d+", s):
+            continue
+        assert "yolov8_vit_tpu/" not in s, (path, s)
+        assert not re.search(r"(?<![\w/])yolov8_vit_tpu(?![\w])", s), \
+            (path, s)
+        assert "csrc/build" not in s and "libmtnative" not in s, (path, s)
+
+
+def test_host_library_sources_are_the_ports_copy():
+    from yolov8_vit_tpu_torch import _build
+    host = os.path.join(PKG, "csrc", "host")
+    for f in _build.HOST_SOURCES + _build.HOST_HEADERS:
+        path = os.path.realpath(os.path.join(_build._CSRC, f))
+        assert path.startswith(host + os.sep) and os.path.isfile(path), f
+    for root, _dirs, files in os.walk(os.path.join(PKG, "csrc")):
+        for name in files:
+            with open(os.path.join(root, name)) as fh:
+                for line in fh:
+                    if line.startswith("#include \""):
+                        assert ".." not in line and "csrc" not in line, \
+                            (name, line)

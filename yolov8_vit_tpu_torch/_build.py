@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host image library.
 
 Each `csrc/*.cu` compiles with nvcc into its own shared library with a
 plain C interface, loaded through ctypes.  Builds happen at first use (or
 all at once through `build()`), never at import: this module imports on
 machines without nvcc or a GPU, where every kernel wrapper runs its plain
-PyTorch version on CPU tensors instead.
+PyTorch version on CPU tensors instead.  The host library (`csrc/host/`:
+JPEG / PNG / BMP / PPM decode and the letterbox, runtime/native.py)
+compiles with the host C++ compiler, with JPEG and PNG decode where
+libjpeg and libpng are found (`build_host`).
 
 The build directory `_build/` beside this file is listed in .gitignore;
 library names carry a hash of the sources and flags, so an edited source
@@ -44,6 +47,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+# the host image library (runtime/native.py): sources, compiler flags
+HOST_SOURCES = ("host/imgproc.cc", "host/capi.cc")
+HOST_HEADERS = ("host/imgproc.h",)
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+# optional decoders: (macro, library, a program that needs both)
+HOST_OPTIONAL = {
+    "jpeg": ("MT_WITH_JPEG", "-ljpeg",
+             "#include <cstdio>\n#include <jpeglib.h>\n"
+             "int main() { jpeg_decompress_struct c; jpeg_error_mgr e;\n"
+             "  c.err = jpeg_std_error(&e); jpeg_create_decompress(&c);\n"
+             "  jpeg_destroy_decompress(&c); return 0; }\n"),
+    "png": ("MT_WITH_PNG", "-lpng",
+            "#include <png.h>\n"
+            "int main() { return png_sig_cmp(nullptr, 0, 0); }\n"),
+}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -59,12 +78,94 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + HEADERS:
+def _hashed_path(name: str, flags, files) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in files:
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _lib_path(name: str) -> str:
+    return _hashed_path(name, NVCC_FLAGS, (SOURCES[name],) + HEADERS)
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) on PATH")
+    return cxx
+
+
+_host_features: dict | None = None
+
+
+def host_features() -> dict[str, str | None]:
+    """{"jpeg": None | why not, "png": ...}: None where a program using
+    the library compiles and links here (probed once a process)."""
+    global _host_features
+    if _host_features is None:
+        cxx = _cxx()
+        found = {}
+        for name, (_macro, lib, prog) in HOST_OPTIONAL.items():
+            run = subprocess.run([cxx, "-x", "c++", "-", "-o", os.devnull,
+                                  lib], input=prog.encode(),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+            lines = run.stdout.decode(errors="replace").strip().splitlines()
+            found[name] = None if run.returncode == 0 else \
+                (lines[0] if lines else f"exit {run.returncode}")
+        _host_features = found
+    return _host_features
+
+
+def _host_flags() -> tuple[list[str], list[str]]:
+    """(compiler flags, link libraries) of this machine's host build."""
+    flags, libs = list(HOST_FLAGS), []
+    for name, missing in host_features().items():
+        if missing is None:
+            macro, lib, _ = HOST_OPTIONAL[name]
+            flags.append(f"-D{macro}")
+            libs.append(lib)
+    return flags, libs + ["-lpthread"]
+
+
+def host_lib_path() -> str:
+    """Where the host image library is (or will be) built: the name
+    hashes the sources and this machine's flags (its optional
+    decoders)."""
+    flags, libs = _host_flags()
+    return _hashed_path("mtnative", flags + libs,
+                        HOST_SOURCES + HOST_HEADERS)
+
+
+def build_host() -> str:
+    """Compile the host image library if it is missing; returns its path.
+    JPEG and PNG decode are compiled in where libjpeg / libpng are found
+    (`host_features`).  The compiler's output is kept beside it
+    (`<path>.log`); a failed build raises with that output."""
+    out = host_lib_path()
+    if os.path.exists(out):
+        return out
+    flags, libs = _host_flags()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_cxx(), *flags, "-o", tmp,
+           *(os.path.join(_CSRC, f) for f in HOST_SOURCES), *libs]
+    run = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT)
+    log = run.stdout.decode(errors="replace")
+    missing = {k: v for k, v in host_features().items() if v is not None}
+    with open(out + ".log", "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + log
+                 + "".join(f"without {k}: {v}\n" for k, v in missing.items()))
+    if run.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({run.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return out
 
 
 def build(names=None) -> float:

@@ -91,6 +91,17 @@ def detect_config_from_meta(meta_cfg: dict) -> DetectConfig:
     return DetectConfig(**kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout (parallel/mesh.py): the data axis takes the
+    processes the model axis leaves; `model_parallel` is the ViT's
+    tensor-parallel degree (1 = data parallel only)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+
 class ServiceConfig:
     """JSON-backed mutable service config (thread-safe): keys `num`,
     `standard`, `class_config`, `detect_config`, read-modify-written by

@@ -83,6 +83,8 @@ class ViTSpec:
 
 VIT_B8_224 = ViTSpec()
 VIT_B16_224 = ViTSpec(patch=16)
+VIT_S16_224 = ViTSpec(patch=16, dim=384, heads=6)
+VIT_L16_224 = ViTSpec(patch=16, dim=1024, depth=24, heads=16)
 
 
 class Dense(nn.Module):

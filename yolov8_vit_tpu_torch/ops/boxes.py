@@ -10,6 +10,17 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
             * (boxes[..., 3] - boxes[..., 1]).clamp_min(0))
 
 
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU between (N, 4) and (M, 4) xyxy boxes -> (N, M)
+    (torchvision's `box_iou` formulation; the union floored at 1e-9)."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = (rb - lt).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a)[:, None] + box_area(b)[None, :] - inter
+    return inter / union.clamp_min(1e-9)
+
+
 def unletterbox_boxes(boxes: torch.Tensor, ratio: float,
                       dwdh: tuple[float, float]) -> torch.Tensor:
     """Map xyxy boxes from letterboxed coords back to the original image:

@@ -29,6 +29,40 @@ def _source_indices(boxes: torch.Tensor, out_hw: tuple[int, int],
     return sy, sx
 
 
+def crop_and_resize_nearest_gather(img: torch.Tensor, boxes: torch.Tensor,
+                                   out_hw: tuple[int, int]) -> torch.Tensor:
+    """Crop integer xyxy `boxes` (K, 4) from `img` (H, W, C), nearest-
+    resized to out_hw -> (K, h, w, C) in img's dtype, as one gather.
+    Degenerate boxes (w <= 0) take a width of 1."""
+    h, w = img.shape[0], img.shape[1]
+    sy, sx = _source_indices(boxes, out_hw, (h, w))
+    return img[sy[:, :, None], sx[:, None, :]]
+
+
+def crop_and_resize_nearest(img: torch.Tensor, boxes: torch.Tensor,
+                            out_hw: tuple[int, int]) -> torch.Tensor:
+    """The JAX package's name for the same crop (its one-hot selection
+    matmuls were a TPU device for this gather)."""
+    return crop_and_resize_nearest_gather(img, boxes, out_hw)
+
+
+def _patch_layout(crops: torch.Tensor, patch: int) -> torch.Tensor:
+    """(K, h, w, C) -> (K, n_patches, patch, patch * C): patch rows ordered
+    (pi, pj), trailing dims (u, (v, c))."""
+    k, out_h, out_w, c = crops.shape
+    nh, nw = out_h // patch, out_w // patch
+    crops = crops.reshape(k, nh, patch, nw, patch, c).permute(0, 1, 3, 2, 4, 5)
+    return crops.reshape(k, nh * nw, patch, patch * c)
+
+
+def crop_to_patches(img: torch.Tensor, boxes: torch.Tensor,
+                    out_hw: tuple[int, int], patch: int) -> torch.Tensor:
+    """`crop_and_resize_nearest` of one frame in ViT patch layout, bf16:
+    (K, n_patches, patch, patch * C)."""
+    crops = crop_and_resize_nearest_gather(img, boxes, out_hw)
+    return _patch_layout(crops.to(torch.bfloat16), patch)
+
+
 def crop_to_patches_i8(images: torch.Tensor, slot_img: torch.Tensor,
                        boxes: torch.Tensor, out_hw: tuple[int, int],
                        patch: int) -> torch.Tensor:
@@ -36,13 +70,9 @@ def crop_to_patches_i8(images: torch.Tensor, slot_img: torch.Tensor,
     frame `slot_img` (K,) each, resized nearest to out_hw, in ViT patch
     layout: (K, n_patches, patch, patch*C) int8 holding pixel - 128, patch
     rows ordered (pi, pj), trailing dims (u, (v, c))."""
-    out_h, out_w = out_hw
     _, h, w, c = images.shape
     sy, sx = _source_indices(boxes, out_hw, (h, w))
     si = slot_img.to(torch.int64)[:, None, None]
     crops = images[si, sy[:, :, None], sx[:, None, :]]     # (K, oh, ow, C)
     crops = (crops.to(torch.int16) - 128).to(torch.int8)
-    k = crops.shape[0]
-    nh, nw = out_h // patch, out_w // patch
-    crops = crops.reshape(k, nh, patch, nw, patch, c).permute(0, 1, 3, 2, 4, 5)
-    return crops.reshape(k, nh * nw, patch, patch * c)
+    return _patch_layout(crops, patch)

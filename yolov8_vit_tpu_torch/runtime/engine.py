@@ -34,7 +34,6 @@ import torch
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.config import detect_config_from_meta
-from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
 from yolov8_vit_tpu_torch.models.vit import ViTClassifier, ViTSpec
 from yolov8_vit_tpu_torch.models.yolov8 import YOLOv8, detect_spec
 from yolov8_vit_tpu_torch.runtime.detector import decode_predictions
@@ -106,6 +105,10 @@ class Engine:
             h = w = self.vit_spec.img_size
             self._desired = ["output"]
         elif self.kind == "two_stage":
+            # two_stage imports runtime.detector, whose package imports
+            # this module
+            from yolov8_vit_tpu_torch.models.two_stage import \
+                TwoStagePipeline
             self.model = TwoStagePipeline(
                 det_cfg=self.det_cfg, vit_spec=self.vit_spec,
                 num_classes=self.num_classes,

@@ -1,13 +1,21 @@
 """Batch inference: host decode + resolution-bucketed two-stage pipeline.
 
-  * frames decode on host threads (serve/imageio.py);
+  * frames decode on host threads through the host image library
+    (runtime/native.py: libjpeg / libpng), or serve/imageio.py where the
+    library is absent or a file does not decode there;
   * frames are bucketed by resolution, and each bucket runs
     letterbox -> detect -> NMS -> crop -> classify as one enqueued forward
     (models/two_stage.py); results map back to input order;
   * outputs are packed into one f32 array per batch, so a result costs one
     device -> host copy;
   * detections the fused classify budget dropped are re-classified by the
-    overflow ladder, so every kept box is classified at any density.
+    overflow ladder, so every kept box is classified at any density;
+  * with a `mesh` (parallel/mesh.py, one process per device, every rank
+    calling the runner alike) each rank runs its rows of a batch over the
+    data axis and the packed rows are all-gathered: the classify budget is
+    then spread over a rank's rows, and the overflow ladder (run on every
+    rank) classifies what a rank's budget dropped, so the integer outputs
+    are the meshless runner's.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ from yolov8_vit_tpu_torch.config import (CLASS_NAMES, DetectConfig,
                                          detect_config_from_meta)
 from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
 from yolov8_vit_tpu_torch.models.vit import ViTSpec
+from yolov8_vit_tpu_torch.parallel import sharding
+from yolov8_vit_tpu_torch.parallel.mesh import axis_group, axis_size
+from yolov8_vit_tpu_torch.runtime import native
 from yolov8_vit_tpu_torch.serve import imageio
 from yolov8_vit_tpu_torch.weights import (init_tree, load_pipeline_tree,
                                           load_tree, read_engine)
@@ -62,13 +73,35 @@ class _HostCopy:
 class BatchRunner:
     pipeline: TwoStagePipeline
     max_batch: int = 8
+    # optional mesh with a "data" axis (parallel.make_mesh): a batch's rows
+    # split over it; max_batch must be a multiple of its size
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            n = axis_size(self.mesh, "data")
+            if self.max_batch % n:
+                raise ValueError(
+                    f"max_batch {self.max_batch} must be a multiple of the "
+                    f"data axis ({n})")
 
     @property
     def device(self) -> torch.device:
         return self.pipeline.device
 
     def _fn(self, images: torch.Tensor) -> torch.Tensor:
-        """Fused pipeline -> one packed (B, 1 + 9T) f32 array."""
+        """Fused pipeline -> one packed (B, 1 + 9T) f32 array (over a mesh:
+        this rank's rows, then every rank's gathered in order)."""
+        if self.mesh is None:
+            return self._packed(images)
+        part = self._packed(sharding.shard_batch(self.mesh, images))
+        group = axis_group(self.mesh, "data")
+        parts = [torch.empty_like(part)
+                 for _ in range(axis_size(self.mesh, "data"))]
+        torch.distributed.all_gather(parts, part, group=group)
+        return torch.cat(parts)
+
+    def _packed(self, images: torch.Tensor) -> torch.Tensor:
         o = self.pipeline(images)
         b = images.shape[0]
         f32 = torch.float32
@@ -107,8 +140,11 @@ class BatchRunner:
     # ------------------------------------------------------------------
     @staticmethod
     def _decode(path: str):
-        """RGB (H, W, 3) uint8, or None when the file does not decode."""
-        return imageio.imread_rgb(path)
+        """RGB (H, W, 3) uint8, or None when the file does not decode:
+        the host image library first, then serve/imageio.py (no library,
+        or a format the library does not read)."""
+        img = native.decode_image(path)
+        return img if img is not None else imageio.imread_rgb(path)
 
     def _enqueue(self, paths: Sequence[str],
                  profile: dict | None = None) -> dict:

@@ -8,6 +8,9 @@
 
 Training runs on `device`, the card unless the caller asks for "cpu";
 asking for the card where there is none raises (`_build.resolve_device`).
+With a `mesh` (parallel/mesh.py) every process of the mesh calls the same
+function: the trainer splits rows over its data axis and the ViT over its
+model axis, and only the primary rank writes files.
 Engines are written by the port's `weights.save_engine` with the JAX
 package's meta keys, so either package loads them.
 """
@@ -25,11 +28,11 @@ from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.config import CFG
 from yolov8_vit_tpu_torch.data.voc import deliver
 from yolov8_vit_tpu_torch.models.vit import ViTSpec, VIT_B8_224
+from yolov8_vit_tpu_torch.parallel.distributed import is_primary
 from yolov8_vit_tpu_torch.runtime.engine import Engine
 from yolov8_vit_tpu_torch.train.dataset import build_dataloaders
-from yolov8_vit_tpu_torch.train.vit_train import ViTTrainer
-from yolov8_vit_tpu_torch.weights import module_tree, read_engine, \
-    save_engine
+from yolov8_vit_tpu_torch.train.vit_train import ViTTrainer, params_tree
+from yolov8_vit_tpu_torch.weights import read_engine, save_engine
 
 
 def set_seed(seed: int = 42) -> None:
@@ -73,10 +76,17 @@ def _with_workdir(cfg: CFG, workdir: str) -> CFG:
         valid_path=[os.path.join(workdir, p) for p in cfg.valid_path])
 
 
-def train(cfg: CFG = CFG(), log: bool = False, workdir: str = ".",
-          init_params: dict | None = None,
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        torch.distributed.barrier()
+
+
+def train(cfg: CFG = CFG(), log: bool = False, mesh=None,
+          workdir: str = ".", init_params: dict | None = None,
           log_fn: Callable[[str], None] = print, device="cuda"):
-    """Full fine-tune on `device` -> (trained model, best val accuracy).
+    """Full fine-tune on `device` (over `mesh` when given) -> (trained
+    model, best val accuracy); a tensor-parallel model holds its shard
+    (`vit_train.params_tree` gathers it).
 
     Starts from `init_params` (a variables tree {"params": tree}) when
     given, else from the `cfg.pretrained` engine dir when it exists (a
@@ -84,9 +94,9 @@ def train(cfg: CFG = CFG(), log: bool = False, workdir: str = ".",
     by cfg.seed.  The best-val params go to `weights/new_weight/best` as a
     classify engine."""
     trainer = ViTTrainer(
-        cfg=cfg, spec=_spec_for(cfg), device=device,
+        cfg=cfg, spec=_spec_for(cfg), mesh=mesh,
         log_path=os.path.join(workdir, "train/result.json"),
-        log_fn=log_fn)
+        log_fn=log_fn, device=device)
     pre = os.path.join(workdir, cfg.pretrained)
     if init_params is None and os.path.isdir(pre):
         init_params = read_engine(pre)[1]
@@ -108,16 +118,20 @@ def train(cfg: CFG = CFG(), log: bool = False, workdir: str = ".",
     best_dir = os.path.join(workdir, "weights/new_weight/best")
 
     def save_ckpt(m):
-        class_export({"params": module_tree(m)}, cfg, best_dir)
+        tree = trainer.params_tree(m)
+        if is_primary():
+            class_export({"params": tree}, cfg, best_dir)
 
     model, _, best = trainer.fit(model, optimizer, train_loader,
                                  valid_loader, save_checkpoint=save_ckpt,
                                  log=log)
+    _barrier(mesh)
     return model, best
 
 
-def retrain(log: bool = False, cfg: CFG = CFG(), workdir: str = ".",
-            log_fn: Callable[[str], None] = print, device="cuda"):
+def retrain(log: bool = False, cfg: CFG = CFG(), mesh=None,
+            workdir: str = ".", log_fn: Callable[[str], None] = print,
+            device="cuda"):
     """The service's retrain cycle: deliver the ingested labels (train/new)
     80 / 20 into train/new_train and train/new_valid, train, and export
     the best-val engine (the final params if no epoch set a best) to
@@ -125,23 +139,27 @@ def retrain(log: bool = False, cfg: CFG = CFG(), workdir: str = ".",
     device = _build.resolve_device(device)
     set_seed(cfg.seed)
     log_fn("Starting data delivery...")
-    deliver(os.path.join(workdir, "train/new/"),
-            os.path.join(workdir, "train/new_train"),
-            os.path.join(workdir, "train/new_valid"))
-    if log:
-        result = os.path.join(workdir, "train/result.json")
-        os.makedirs(os.path.dirname(result), exist_ok=True)
-        with open(result, "w") as f:
-            f.write("{}")
+    if is_primary():
+        deliver(os.path.join(workdir, "train/new/"),
+                os.path.join(workdir, "train/new_train"),
+                os.path.join(workdir, "train/new_valid"))
+        if log:
+            result = os.path.join(workdir, "train/result.json")
+            os.makedirs(os.path.dirname(result), exist_ok=True)
+            with open(result, "w") as f:
+                f.write("{}")
+    _barrier(mesh)
     log_fn("Starting training...")
-    model, best = train(cfg, log=log, workdir=workdir, log_fn=log_fn,
-                        device=device)
+    model, best = train(cfg, log=log, mesh=mesh, workdir=workdir,
+                        log_fn=log_fn, device=device)
     log_fn("Exporting engine...")
     latest = os.path.join(workdir, "weights/new_weight/best")
     out = os.path.join(workdir, "weights/class_engine")
-    if os.path.isdir(latest):
-        class_export(read_engine(latest)[1], cfg, out)
-    else:
-        class_export({"params": module_tree(model)}, cfg, out)
+    tree = None if os.path.isdir(latest) else \
+        {"params": params_tree(model, mesh)}
+    if is_primary():
+        class_export(read_engine(latest)[1] if tree is None else tree,
+                     cfg, out)
+    _barrier(mesh)
     log_fn("Retraining process complete.")
     return best

@@ -168,7 +168,8 @@ def yolo_detection_loss(box_dist: torch.Tensor, cls_logits: torch.Tensor,
                         gt_mask: torch.Tensor, input_hw: tuple[int, int],
                         strides: tuple[int, ...] = (8, 16, 32),
                         reg_max: int = 16,
-                        gains: tuple[float, float, float] = (7.5, 0.5, 1.5)):
+                        gains: tuple[float, float, float] = (7.5, 0.5, 1.5),
+                        data_group=None):
     """Batched YOLOv8 loss.
 
     Args:
@@ -177,6 +178,10 @@ def yolo_detection_loss(box_dist: torch.Tensor, cls_logits: torch.Tensor,
       gt_boxes: (B, G, 4) xyxy input pixels (padded).
       gt_labels: (B, G) int.
       gt_mask: (B, G) bool.
+      data_group: a process group over which the batch's rows are split
+        (data parallelism): the target-score sum and the batch size are
+        those of the whole batch, so the sum of the ranks' losses (and of
+        their gradients) is the whole batch's.
     Returns (total, {box, cls, dfl}): one batch-wide target-score sum,
     the gains, then `* batch_size` (the scale the lr0 / momentum recipe
     and the gradient clip at 10 assume); the parts are the unscaled
@@ -197,8 +202,14 @@ def yolo_detection_loss(box_dist: torch.Tensor, cls_logits: torch.Tensor,
     fg, agt, tscore = task_aligned_assign(
         pred_scores.detach(), pred_boxes.detach(), anchors_px, gt_boxes,
         gt_labels, gt_mask)
-    # ONE batch-wide normaliser (ultralytics target_scores_sum)
-    tsum = tscore.sum().clamp_min(1.0)
+    # ONE batch-wide normaliser (ultralytics target_scores_sum); the
+    # assignment is made on detached predictions, so it carries no gradient
+    tsum = tscore.sum()
+    batch = b
+    if data_group is not None:
+        torch.distributed.all_reduce(tsum, group=data_group)
+        batch = b * torch.distributed.get_world_size(data_group)
+    tsum = tsum.clamp_min(1.0)
 
     # cls: BCE with the aligned scores
     xl = cls_logits
@@ -221,7 +232,7 @@ def yolo_detection_loss(box_dist: torch.Tensor, cls_logits: torch.Tensor,
     dfl_loss_v = (dfl * weight).sum() / tsum
 
     g_box, g_cls, g_dfl = gains
-    total = (g_box * box_loss + g_cls * cls_loss + g_dfl * dfl_loss_v) * b
+    total = (g_box * box_loss + g_cls * cls_loss + g_dfl * dfl_loss_v) * batch
     parts = {"box": g_box * box_loss, "cls": g_cls * cls_loss,
              "dfl": g_dfl * dfl_loss_v}
     return total, parts

@@ -13,9 +13,10 @@ nn.Parameter, forward and backward plain PyTorch autograd (JAX computes
 them as plain XLA: no Pallas kernel lies on the training step).  Each step
 holds cuDNN's and cuBLAS's TF32 switches off over its forward, backward
 and optimizer step (`models.yolov8.f32_training`), as the JAX reference
-trains in f32.  JAX's `mesh` (data-parallel steps) has no counterpart yet:
-the trainer runs on one `device`, the card unless the caller asks for the
-CPU.
+trains in f32.  The trainer runs on `device`, the card unless the caller
+asks for the CPU; with a `mesh` (parallel/mesh.py, one process per
+device) each step splits its batch's rows over the data axis and sums the
+ranks' gradients of the whole batch's loss (`make_yolo_train_step`).
 
 The dataset draws from one np.random.Generator in the JAX module's order
 and reproduces its OpenCV calls in numpy (train/augment.py: uint8
@@ -38,6 +39,8 @@ from yolov8_vit_tpu_torch.config import DetectConfig
 from yolov8_vit_tpu_torch.models.yolov8 import (YOLOv8, detect_spec,
                                                 f32_training,
                                                 flatten_head_outputs)
+from yolov8_vit_tpu_torch.parallel import sharding
+from yolov8_vit_tpu_torch.parallel.mesh import axis_group, axis_size
 from yolov8_vit_tpu_torch.runtime.detector import decode_predictions
 from yolov8_vit_tpu_torch.serve import imageio
 from yolov8_vit_tpu_torch.serve.infer import _letterbox_host
@@ -402,22 +405,43 @@ def make_yolo_optimizer(named_params: dict, lr0: float, lrf: float,
 
 
 def make_yolo_train_step(model: YOLOv8, optimizer: YoloSGD, input_hw,
-                         reg_max: int = 16, strides=(8, 16, 32)):
+                         reg_max: int = 16, mesh=None, strides=(8, 16, 32)):
     """(imgs, boxes, labels, mask) tensors on the model's device ->
     (loss, parts), one optimizer step on `model` in place, in full f32
     (`f32_training`).  `strides` must be the head's: the loss builds its
-    anchor grid from them."""
+    anchor grid from them.
+
+    With a mesh (every rank passes the whole batch, the same params) each
+    rank takes its rows over the data axis; the loss normalises by the
+    whole batch's target-score sum and size, and the ranks' gradients are
+    summed before the optimizer step (clip included), so the step is the
+    whole batch's, as the JAX step sharded by XLA is.  The loss and parts
+    returned are the whole batch's.  A batch whose rows do not divide over
+    the data axis runs replicated."""
+    n = axis_size(mesh, "data") if mesh is not None else 1
+    group = axis_group(mesh, "data") if mesh is not None else None
 
     def step(imgs, boxes, labels, mask):
+        split = group is not None and imgs.shape[0] % n == 0
+        if split:
+            imgs, boxes, labels, mask = sharding.shard_batch(
+                mesh, (imgs, boxes, labels, mask))
         with f32_training():
             optimizer.zero_grad()
             bd, cl = flatten_head_outputs(model(imgs))
-            loss, parts = yolo_detection_loss(bd, cl, boxes, labels, mask,
-                                              input_hw, strides=strides,
-                                              reg_max=reg_max)
+            loss, parts = yolo_detection_loss(
+                bd, cl, boxes, labels, mask, input_hw, strides=strides,
+                reg_max=reg_max, data_group=group if split else None)
             loss.backward()
+            if split:
+                sharding.reduce_grads(model.parameters(), group)
             optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+        out = [loss.detach()] + [parts[k].detach() for k in sorted(parts)]
+        if split:
+            flat = torch.stack(out)
+            torch.distributed.all_reduce(flat, group=group)
+            out = list(flat)
+        return out[0], dict(zip(sorted(parts), out[1:]))
 
     return step
 
@@ -474,10 +498,9 @@ def train(epochs: int, batch: int, data_root: str,
     {0.75, 1, 1.25} (`resize_bilinear_antialias`).  Validates before
     (unless skip_preval) and after; the EMA params are validated and
     returned, as ultralytics exports them.
+    With a `mesh`, every rank of it calls `train` alike: each step splits
+    its batch over the data axis (`make_yolo_train_step`).
     Returns (params {"params": tree}, {"preval": ..., "final": ...})."""
-    if mesh is not None:
-        raise NotImplementedError("the port's trainer runs on one device; "
-                                  "a mesh is not supported yet")
     device = _build.resolve_device(device)
     resume = bool(weights and os.path.isdir(weights))
     model = build_train_model(cfg, weights if resume else None, device)
@@ -503,7 +526,8 @@ def train(epochs: int, batch: int, data_root: str,
     def step_for(sz):
         if sz not in steps:
             steps[sz] = make_yolo_train_step(model, opt, (sz, sz),
-                                             cfg.reg_max, cfg.strides)
+                                             cfg.reg_max, mesh=mesh,
+                                             strides=cfg.strides)
         return steps[sz]
 
     ema = EMA(named) if use_ema else None

@@ -1,1 +1,2 @@
-"""utils of the PyTorch port."""
+"""Utilities of the PyTorch port: checkpoints, profiling, the detect
+head's densify / fit."""
