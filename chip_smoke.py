@@ -183,7 +183,25 @@ Phases (any failure exits non-zero):
      the one card over gloo, where gloo carries CUDA tensors:
      `dryrun_multichip(2)` and the ViT-B/8 step at n_model 2 and at
      n_data 2 against the meshless step (else why not, printed).
-Each path of phases 5-8, 11, 12 and 14-17 is driven with every launch count
+  18. serialized engine artifacts and the native driver: phase 5's tree
+     as detect, classify and merged two_stage (budget 2) engine dirs;
+     `attach_aot` programs (bf16, f32) and one `attach_compiled` package
+     (bf16) on the two_stage dir at ARTIFACT_CALL frames, and the detect
+     tree as a native package (`export_stablehlo_detect`, batch 1, f32,
+     weights inside), each timed and sized; a fresh process's Engine load
+     and first result through each path ("eager", "aot", "compiled");
+     phase 5's 32 frames through each path with the counts reset before
+     and read after (A-D launched, none of E-J), every call asserted to
+     have run its path; the bf16 frames whose kept set differs from the
+     eager engine's, attributed by phase 13's rules on the stage-1
+     inputs recorded inside kernel A's launcher (an unexplained one
+     fails); the compiled step against the eager one in turns; kernel
+     C's host cost a call through the operator; the f32 program equal to
+     the eager f32 engine; `mt_infer` (`_build.build_driver`) on a BMP
+     frame with --dump-prefix, its outputs bit-equal to
+     `aoti_load_package` of the same package on the dumped input and to
+     the eager f32 detect engine (num_dets, labels; boxes within 1e-4).
+Each path of phases 5-8, 11, 12 and 14-18 is driven with every launch count
 set to 0 just before it and read just after: its kernels must have
 launched, and the kernels of the other paths must not have.  Outputs must be finite,
 detections found and the overflow ladder taken.  The line before the last
@@ -4024,6 +4042,413 @@ def host_decode_mesh_phase(torch, ops, np, smi: str, b16_runner,
     return out
 
 
+# ---- phase 18: serialized engine artifacts and the native driver ----------
+ARTIFACT_CALL = 8                 # frames a call of the two-stage blobs
+# a fresh process's load of the merged engine dir through one of its paths
+# ("eager", "aot" or "compiled"): import, frames to the card, `Engine`
+# load (the compiled package loads at the first call), the first result
+ARTIFACT_START = """import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+t_torch = time.perf_counter()
+from yolov8_vit_tpu_torch.runtime.engine import Engine
+t1 = time.perf_counter()
+path, frames_npy, kind = sys.argv[1:4]
+x = torch.from_numpy(np.load(frames_npy)).to("cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+eng = Engine(path, device="cuda", dtype=torch.bfloat16)
+if kind != "compiled":
+    eng._compiled = {}
+if kind == "eager":
+    eng._aot = {}
+t3 = time.perf_counter()
+if kind == "compiled":      # the package loader's module, apart
+    import torch._inductor
+t4 = time.perf_counter()
+out = eng(x)
+torch.cuda.synchronize()
+t5 = time.perf_counter()
+print(json.dumps({"path": eng.last_path, "import_s": t1 - t0,
+                  "torch_import_s": t_torch - t0, "frames_to_card_s": t2 - t1,
+                  "engine_load_s": t3 - t2, "inductor_import_s": t4 - t3,
+                  "first_result_s": t5 - t4, "kept": int(out[4].sum())}))
+"""
+
+
+@contextlib.contextmanager
+def _stage1_recorder(torch):
+    """Records, inside kernel A's launcher (which an exported or compiled
+    graph calls through the dispatcher too), each call's stage-1 NMS
+    inputs and picks, on the CPU: yields the list of (boxes, scores,
+    picks)."""
+    from yolov8_vit_tpu_torch.ops import nms as nms_mod
+    kernel = nms_mod.nms_argmax_ml_kernel
+    calls = []
+
+    def record(boxes, scores, *args):
+        out = kernel(boxes, scores, *args)
+        calls.append((boxes.cpu(), scores.cpu(),
+                      _stage1_picks(torch, boxes, scores, out).cpu()))
+        return out
+
+    nms_mod.nms_argmax_ml_kernel = record
+    try:
+        yield calls
+    finally:
+        nms_mod.nms_argmax_ml_kernel = kernel
+
+
+def _artifact_leg(torch, eng, frames, path: str) -> dict:
+    """Frames through the two_stage `eng` ARTIFACT_CALL at a time, each
+    call asserted to have run `path`: the outputs on the CPU with the
+    stage-1 NMS inputs and picks of each call (`_stage1_recorder`), and
+    the ViT's row logits where the Python forward runs."""
+    from yolov8_vit_tpu_torch.runtime.engine import TWO_STAGE_OUTPUTS
+    parts, logits = [], []
+    hook = eng.model.vit.register_forward_hook(
+        lambda _m, _i, o: logits.append(o.float().cpu()))
+    try:
+        with _stage1_recorder(torch) as calls:
+            for i in range(0, len(frames), ARTIFACT_CALL):
+                o = dict(zip(TWO_STAGE_OUTPUTS,
+                             eng(frames[i:i + ARTIFACT_CALL])))
+                if eng.last_path != path or len(calls) != len(parts) + 1:
+                    raise AssertionError(
+                        f"{path} leg: the call ran {eng.last_path!r} with "
+                        f"{len(calls) - len(parts)} stage-1 NMS calls")
+                o["picks"] = calls[-1][2]
+                parts.append({k: v.cpu() for k, v in o.items()})
+    finally:
+        hook.remove()
+    leg = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    leg["row_logits"] = _row_logits(torch, parts, logits, ARTIFACT_CALL) \
+        if logits else {}
+    leg["stage1"] = tuple(torch.cat([c[i] for c in calls])
+                          for i in range(2))
+    return leg
+
+
+def _detect_stage1(torch, run, frames):
+    """The stage-1 NMS inputs (boxes, scores) of a detect engine or
+    package `run` on each frame as a [0, 1] f32 blob, one a call."""
+    with _stage1_recorder(torch) as calls:
+        for i in range(len(frames)):
+            run(frames[i:i + 1].float() / 255.0)
+    if len(calls) != len(frames):
+        raise AssertionError(f"{len(calls)} stage-1 NMS calls for "
+                             f"{len(frames)} frames")
+    return tuple(torch.cat([c[i] for c in calls]) for i in range(2))
+
+
+def _artifact_attribute(torch, cfg, legs, f: int, rel: float) -> str:
+    """Why frame f's integer outputs differ between the eager leg
+    (legs[0]) and an artifact's, by phase 13's rules on what both legs
+    recorded: "area tie" (either side's stage-2 rows), a flip of the
+    classifier alone where the eager row's top-two logit margin is within
+    KERNEL_TOL's atol (an artifact's logits are not observable), the NMS
+    decisions that differ (`_stage_flips` on both legs' recorded stage-1
+    inputs and stage-2 rows), or "unexplained"."""
+    from yolov8_vit_tpu_torch.runtime.accuracy import hinges_on_area_tie
+    eager, other = legs
+    if all(torch.equal(eager[k][f], other[k][f])
+           for k in ("num_dets", "picks", "det_labels", "final_valid")):
+        rows = torch.nonzero(eager["cls_labels"][f]
+                             != other["cls_labels"][f])[:, 0].tolist()
+        margins = []
+        for r in rows:
+            lg = eager["row_logits"].get((f, r))
+            top = torch.topk(lg, 2).values if lg is not None else None
+            margins.append(float(top[0] - top[1]) if top is not None
+                           else float("inf"))
+        if rows and max(margins) <= KERNEL_TOL["atol"]:
+            return (f"class margin (eager) {max(margins):.3g} <= "
+                    f"{KERNEL_TOL['atol']}")
+    sides = []
+    for leg in legs:
+        n = int(leg["num_dets"][f])
+        if hinges_on_area_tie(leg["boxes"][f][:n].numpy(),
+                              leg["det_scores"][f][:n].numpy(), cfg):
+            return "area tie"
+        sides.append((leg["stage1"][0][f], leg["stage1"][1][f],
+                      (leg["boxes"][f], leg["det_scores"][f],
+                       leg["det_labels"][f], n)))
+    found = _stage_flips(torch, cfg, sides, rel)
+    return "; ".join(found) if found else "unexplained"
+
+
+def _differing_frames(torch, cfg, legs, rel: float, what: str) -> dict:
+    """{frame: reason} of the frames whose kept set differs between two
+    legs; an unexplained one fails the phase."""
+    keys = ("num_dets", "picks", "det_labels", "final_valid", "cls_labels")
+    out = {}
+    for f in range(len(legs[0]["num_dets"])):
+        if not all(torch.equal(legs[0][k][f], legs[1][k][f]) for k in keys):
+            out[f] = _artifact_attribute(torch, cfg, legs, f, rel)
+    bad = {f: r for f, r in out.items() if r == "unexplained"}
+    if bad:
+        raise AssertionError(f"{what}: frames whose kept set differs from "
+                             f"the eager engine's with nothing to explain "
+                             f"it: {sorted(bad)}")
+    return out
+
+
+def _dispatch_cost_us(torch, ops, b16_runner, reps: int = 200) -> dict:
+    """Host microseconds a call of kernel C through its wrapper (the
+    mt::quant_mlp_ln operator, the dispatcher) against its launcher called
+    directly, with ViT-B/16's weights on 16 rows, so that the card keeps
+    up with the host: each the best of 3 loops of `reps` calls closed by a
+    synchronize."""
+    from yolov8_vit_tpu_torch.ops import quant
+    blk = b16_runner.pipeline.vit.model.block0
+    f1, f2, n2 = blk.mlp_fc1, blk.mlp_fc2, blk.norm2
+    x = torch.randn(16, 768, device="cuda", dtype=torch.bfloat16)
+    vec = [v.float().contiguous() for v in (n2.scale, n2.bias, f1.w_scale,
+                                            f1.bias, f2.w_scale, f2.bias)]
+    args = (x, vec[0], vec[1], f1.kernel_i8, vec[2], vec[3], f2.kernel_i8,
+            vec[4], vec[5], 1e-6, f1.kernel_t, f2.kernel_t)
+
+    def wrapper():
+        return quant.quant_mlp_ln_fused(
+            x, n2.scale, n2.bias, f1.kernel_i8, f1.w_scale, f1.bias,
+            f2.kernel_i8, f2.w_scale, f2.bias, 1e-6, w1_t=f1.kernel_t,
+            w2_t=f2.kernel_t)
+
+    out = {}
+    for name, fn in (("launcher", lambda: quant.quant_mlp_ln_kernel(*args)),
+                     ("operator", lambda: torch.ops.mt.quant_mlp_ln(*args)),
+                     ("wrapper", wrapper)):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+        out[f"{name}_us"] = best
+    out["operator_cost_us"] = out["operator_us"] - out["launcher_us"]
+    return out
+
+
+def artifact_phase(torch, ops, np, smi: str, b16_runner, b16_tree: dict,
+                   frames) -> dict:
+    """Phase 18: serialized engine artifacts and the native driver at full
+    width.  Phase 5's fitted YOLOv8-s + ViT-B/16 w8a tree as detect,
+    classify and merged two_stage (budget 2) engine dirs; the two_stage dir
+    gets `attach_aot` programs (bf16 and f32) and one `attach_compiled`
+    package (bf16), at ARTIFACT_CALL frames; the detect tree a native
+    package (`export_stablehlo_detect`, batch 1, f32).  Then: each path's
+    load and first result in a fresh process; the compiled path's launch
+    counts (A-D, none of E-J) and its step against the eager step in
+    turns; the frames whose kept set differs from the eager engine's,
+    attributed; `mt_infer` on a BMP frame, its dumped outputs bit-equal to
+    `aoti_load_package` of the same package on its dumped input and equal
+    to the eager f32 detect engine (num_dets, labels; boxes within 1e-4)."""
+    import dataclasses
+    from yolov8_vit_tpu_torch import _build
+    from yolov8_vit_tpu_torch.runtime import engine as rt
+    from yolov8_vit_tpu_torch.runtime.engine import (Engine, attach_aot,
+                                                     attach_compiled,
+                                                     merge_two_stage_engine)
+    from yolov8_vit_tpu_torch.runtime.export import export_stablehlo_detect
+    from yolov8_vit_tpu_torch.serve import imageio
+    from yolov8_vit_tpu_torch.weights import save_engine
+    pipe = b16_runner.pipeline
+    cfg = pipe.det_cfg
+    root = os.path.join(ENGINE_DIR, "artifacts")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out: dict = {"card": smi,
+                 "emulate_precision_casts": rt.EMULATE_PRECISION_CASTS}
+    try:
+        det_meta = {"detect_cfg": {
+            k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(cfg).items()}}
+        det_dir = save_engine(os.path.join(root, "detect"), "detect",
+                              b16_tree["det"], det_meta)
+        cls_dir = save_engine(
+            os.path.join(root, "classify"), "classify", b16_tree["vit"],
+            {"vit_spec": dataclasses.asdict(pipe.vit_spec),
+             "num_classes": pipe.num_classes})
+        two_dir = merge_two_stage_engine(os.path.join(root, "two_stage"),
+                                         det_dir, cls_dir, BUDGET)
+        shape = (ARTIFACT_CALL, *frames.shape[1:])
+        secs = {}
+        for dt in (torch.bfloat16, torch.float32):
+            t0 = time.perf_counter()
+            attach_aot(two_dir, [shape], dtype=dt)
+            secs[f"aot_export_{str(dt)[6:]}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        attach_compiled(two_dir, [shape], dtype=torch.bfloat16)
+        secs["compile_bfloat16_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pkg = export_stablehlo_detect(b16_tree["det"], cfg,
+                                      os.path.join(root, "detect"),
+                                      platform="cuda")
+        secs["driver_package_compile_s"] = time.perf_counter() - t0
+        out["seconds"] = secs
+        adir = os.path.join(two_dir, "aot")
+        out["bytes"] = {n: os.path.getsize(os.path.join(adir, n))
+                        for n in sorted(os.listdir(adir))}
+        out["bytes"]["params.msgpack"] = os.path.getsize(
+            os.path.join(two_dir, "params.msgpack"))
+        out["bytes"]["detect.pt2 (weights inside)"] = os.path.getsize(pkg)
+        print(f"artifacts on {smi}: seconds {json.dumps(secs)}, bytes "
+              f"{json.dumps(out['bytes'])}", flush=True)
+
+        # ---- each path in a fresh process ----------------------------------
+        npy = os.path.join(root, "frames.npy")
+        np.save(npy, frames[:ARTIFACT_CALL].cpu().numpy())
+        fresh = {}
+        for kind in ("eager", "aot", "compiled"):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-c", ARTIFACT_START,
+                                  two_dir, npy, kind], cwd=HERE,
+                                 capture_output=True, text=True, timeout=300)
+            if run.returncode != 0:
+                raise AssertionError(f"fresh {kind} start: "
+                                     f"{run.stderr[-3000:]}")
+            fresh[kind] = dict(json.loads(run.stdout.splitlines()[-1]),
+                               process_s=time.perf_counter() - t0)
+            if fresh[kind]["path"] != kind:
+                raise AssertionError(f"fresh {kind} start ran "
+                                     f"{fresh[kind]['path']!r}")
+        out["fresh_process"] = fresh
+        print(f"fresh process from the merged engine dir on {smi} (phase "
+              f"16's eager cold start: 9.3-14.0 s): {json.dumps(fresh)}",
+              flush=True)
+
+        # ---- launches, kept sets and steps in this process ----------------
+        engines = {kind: Engine(two_dir, device="cuda", dtype=torch.bfloat16)
+                   for kind in ("eager", "aot", "compiled")}
+        engines["eager"]._aot = engines["eager"]._compiled = {}
+        engines["aot"]._compiled = {}
+        for kind, eng in engines.items():
+            eng(frames[:ARTIFACT_CALL])            # warm: loads, cuDNN plans
+            torch.cuda.synchronize()
+            if eng.last_path != kind:
+                raise AssertionError(f"{kind} engine ran {eng.last_path!r}")
+        launches = {}
+        for kind in ("compiled", "aot"):
+            ops.reset_launch_counts()
+            for i in range(0, len(frames), ARTIFACT_CALL):
+                engines[kind](frames[i:i + ARTIFACT_CALL])
+                if engines[kind].last_path != kind:
+                    raise AssertionError(f"{kind}: a call ran "
+                                         f"{engines[kind].last_path!r}")
+            torch.cuda.synchronize()
+            launches[kind] = _path_launches(ops, f"artifact_{kind}",
+                                            A_B + C_D, E_F)
+        out["launches"] = launches
+        legs = {kind: _artifact_leg(torch, eng, frames, kind)
+                for kind, eng in engines.items()}
+        out["frames_differing_from_eager"] = {
+            kind: _differing_frames(torch, cfg, [legs["eager"], legs[kind]],
+                                    2.0 ** -8, f"bf16 {kind}")
+            for kind in ("aot", "compiled")}
+        x8 = frames[:ARTIFACT_CALL]
+
+        def step(kind):
+            eng = engines[kind]
+
+            def call():
+                o = eng(x8)
+                if eng.last_path != kind:
+                    raise AssertionError(f"{kind} step ran {eng.last_path!r}")
+                return o[0]
+            return call
+
+        turns = []
+        for kind in ("eager", "compiled", "compiled", "eager", "aot"):
+            turns.append((kind, _time_ms(step(kind), 5)))
+        out["step_ms_turns"] = turns
+        out["dispatch"] = _dispatch_cost_us(torch, ops, b16_runner)
+        print(f"two_stage bf16 step, {ARTIFACT_CALL} frames, in turns on "
+              f"{smi}: {json.dumps(turns)}; kernel C's host cost a call "
+              f"(us): {json.dumps(out['dispatch'])}", flush=True)
+        del engines
+
+        # ---- the f32 programs against the eager f32 engine ----------------
+        f32 = {kind: Engine(two_dir, device="cuda", dtype=torch.float32)
+               for kind in ("eager", "aot")}
+        f32["eager"]._aot = {}
+        ref, got = f32["eager"](x8), f32["aot"](x8)
+        if f32["aot"].last_path != "aot" or not all(
+                torch.equal(a, b) for a, b in zip(ref, got)):
+            raise AssertionError("f32 aot program != eager f32 engine")
+        del f32
+
+        # ---- the native driver --------------------------------------------
+        t0 = time.perf_counter()
+        driver = _build.build_driver()
+        secs["driver_build_s"] = time.perf_counter() - t0
+        bmp = os.path.join(root, "frame0.bmp")
+        imageio.imwrite(bmp, frames[0].cpu().numpy()[..., ::-1])
+        prefix = os.path.join(root, "dump")
+        t0 = time.perf_counter()
+        run = subprocess.run([driver, "--package", pkg, "--image", bmp,
+                              "--dump-prefix", prefix, "--device", "cuda"],
+                             capture_output=True, text=True, timeout=300)
+        secs["driver_run_s"] = time.perf_counter() - t0
+        if run.returncode != 0 or "OK" not in run.stdout.splitlines():
+            raise AssertionError(f"mt_infer: exit {run.returncode}\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        out["driver_stdout"] = run.stdout.splitlines()
+        h, w = cfg.input_size
+        x = torch.from_numpy(np.fromfile(prefix + "_input.bin", np.float32)
+                             .reshape(1, h, w, 3)).to("cuda")
+        pkg_run = torch._inductor.aoti_load_package(pkg)
+        ops.reset_launch_counts()
+        py = pkg_run(x)
+        torch.cuda.synchronize()
+        launches["driver_package_python"] = _path_launches(
+            ops, "driver_package_python", A_B[:1], A_B[1:] + C_D + E_F)
+        dumped = [np.fromfile(f"{prefix}_{i}.bin", np.uint8)
+                  for i in range(len(py))]
+        for i, (a, b) in enumerate(zip(py, dumped)):
+            if not np.array_equal(a.cpu().contiguous().view(torch.uint8)
+                                  .numpy().reshape(-1), b):
+                raise AssertionError(f"mt_infer output[{i}] != "
+                                     f"aoti_load_package's")
+        eng = Engine(det_dir, device="cuda", dtype=torch.float32)
+        # the compiled bf16 graph's stage-1 inputs against the eager
+        # engine's, within phase 13's bar: the bf16 noise (eager bf16
+        # against eager f32 on the same frames) plus the f32 difference of
+        # compiled against eager code (the detect package against the
+        # eager f32 detect engine, which share the detector and decode)
+        eager_f32 = _detect_stage1(torch, eng, frames)
+        out["stage1_bar_compiled"] = _stage1_bar(
+            torch, legs["compiled"]["stage1"], legs["eager"]["stage1"],
+            (_detect_stage1(torch, pkg_run, frames), eager_f32))
+        print(f"stage-1 inputs, compiled bf16 against eager bf16, within "
+              f"STAGE1_BF16_BAR: {json.dumps(out['stage1_bar_compiled'])}",
+              flush=True)
+        del legs, pkg_run
+        num, boxes, _scores, labels = eng(x)
+        n = int(num[0])
+        if not (torch.equal(num, py[0]) and torch.equal(labels, py[3])):
+            raise AssertionError(f"driver package vs eager f32 engine: "
+                                 f"num_dets {py[0].tolist()} vs "
+                                 f"{num.tolist()}, or labels differ")
+        box_err = float((boxes[0, :n] - py[1][0, :n]).abs().max()) \
+            if n else 0.0
+        if box_err > 1e-4:
+            raise AssertionError(f"driver package vs eager f32 engine: "
+                                 f"boxes differ by {box_err}")
+        out["driver"] = {"num_dets": n, "box_err_vs_eager_f32": box_err,
+                         "bit_equal_to_python_load": True}
+        print(f"mt_infer on {smi}: {n} detections, outputs bit-equal to "
+              f"aoti_load_package, boxes within {box_err:.3g} of the eager "
+              f"f32 engine; build {secs['driver_build_s']:.1f} s, run "
+              f"{secs['driver_run_s']:.2f} s", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _report(name: str, rep: dict) -> None:
     print(f"{name}: " + json.dumps(
         {k: v for k, v in rep.items() if k != "frames"}), flush=True)
@@ -4230,6 +4655,15 @@ def main() -> int:
     _report(f"host decoder and mesh layer ({time.perf_counter() - t0:.1f} s)",
             host)
 
+    t0 = time.perf_counter()
+    art = artifact_phase(torch, ops, np, smi, b16_runner, b16_tree,
+                         paths["vit_b16_w8a"]["frames"])
+    for kind, counts in art["launches"].items():
+        paths[f"artifact_{kind}"] = {"launches": counts}
+    art["phase_s"] = time.perf_counter() - t0
+    _report(f"artifacts and the native driver ({art['phase_s']:.1f} s)",
+            {k: v for k, v in art.items() if k != "driver_stdout"})
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prof = {}
     b16_frames = paths["vit_b16_w8a"].pop("frames")
@@ -4259,7 +4693,10 @@ def main() -> int:
     kernels = []
     for r in rows:
         wrapper, path = ROW_WRAPPER[r["name"]]
-        r = dict(r, launches=paths[path]["launches"][wrapper])
+        r = dict(r, launches=paths[path]["launches"][wrapper],
+                 launches_by_path={p: v["launches"][wrapper]
+                                   for p, v in paths.items()
+                                   if wrapper in v["launches"]})
         if r["name"] in splits:
             r["split_ms"] = splits[r["name"]]
         for extra in ("picks", "by_shape", "by_input", "shape",
@@ -4275,6 +4712,7 @@ def main() -> int:
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
                    "checkpoints": ckpt, "host_decode_mesh": host,
+                   "artifacts": art,
                    "head_dims_wide_ms": wide_ms,
                    "profile": prof, "ptxas": ptxas,
                    "not_measured": reference,

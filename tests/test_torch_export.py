@@ -19,8 +19,11 @@ checkpoints.
 - Random-init engines (no --weights): the same meta, keys, shapes and
   dtypes (the values differ: JAX draws from PRNGKey(0), the port from a
   torch.Generator).
-- The bad merge is refused as JAX refuses it; the JAX CLI's compiled
-  artifact flags are refused by the port's parser.
+- The bad merge is refused as JAX refuses it.
+- The JAX CLI's artifact flags (--stablehlo, --aot, --compiled,
+  --aot-platform, --aot-dtype) each write their files on the CPU, named as
+  the port's `_parse_aot_name` reads them (tests/test_torch_aot.py holds
+  what the files run).
 """
 import dataclasses
 
@@ -276,13 +279,61 @@ def test_bad_merge_refused(ckpts, tmp_path):
                           str(tmp_path / "jtwo")])
 
 
-@pytest.mark.parametrize("flag", [["--stablehlo", "x"], ["--aot", "1"],
-                                  ["--compiled", "1"],
-                                  ["--aot-platform", "cpu"],
-                                  ["--aot-dtype", "float32"]],
-                         ids=lambda f: f[0])
-def test_aot_flags_refused(tmp_path, flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        export.main(["detect", "--out", str(tmp_path / "d")] + flag)
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+# each artifact flag of the JAX CLI, with what it needs beside it to write
+# something on the CPU, and the files it must write (relative to the
+# engine dir, or to tmp_path for --stablehlo's prefix)
+AOT_FLAG_CASES = {
+    "--stablehlo": (["--stablehlo", "{tmp}/native"], ["native.pt2"]),
+    "--aot": (["--aot", "1"],
+              ["aot/1x64x64x3_bfloat16-bfloat16_cpu.pt2",
+               "aot/1x64x64x3_float32-float32_cpu.pt2"]),
+    "--compiled": (["--compiled", "1", "--aot-dtype", "float32"],
+                   ["aot/1x64x64x3_float32-float32_cpu.aoti.pt2",
+                    "aot/1x64x64x3_float32-float32_cpu.aoti.pt2.host.json"]),
+    "--aot-platform": (["--aot-platform", "cpu", "--aot", "2",
+                        "--aot-dtype", "float32"],
+                       ["aot/2x64x64x3_float32-float32_cpu.pt2"]),
+    "--aot-dtype": (["--aot", "1", "--aot-dtype", "float32"],
+                    ["aot/1x64x64x3_float32-float32_cpu.pt2"]),
+}
+
+
+@pytest.mark.parametrize("flag", list(AOT_FLAG_CASES))
+def test_aot_flags_accepted(tmp_path, flag, monkeypatch):
+    """The JAX CLI's artifact flags, with its names and defaults: each
+    writes its files on the CPU, named as `_parse_aot_name` reads them,
+    and the engine dir's Engine registers them."""
+    import os
+    from yolov8_vit_tpu_torch.runtime import engine as rt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv, files = AOT_FLAG_CASES[flag]
+    out = str(tmp_path / "d")
+    export.main(["detect", "--out", out] + DET_ARGS
+                + [a.format(tmp=tmp_path) for a in argv])
+    for f in files:
+        path = str(tmp_path / f) if flag == "--stablehlo" \
+            else os.path.join(out, f)
+        assert os.path.exists(path), f
+    aot_dir = os.path.join(out, "aot")
+    names = sorted(os.listdir(aot_dir)) if os.path.isdir(aot_dir) else []
+    assert names == sorted(os.path.basename(f) for f in files
+                           if f.startswith("aot/"))
+    for name in names:
+        if name.endswith(".host.json"):
+            continue
+        ext = rt.COMPILED_EXT if name.endswith(rt.COMPILED_EXT) \
+            else rt.AOT_EXT
+        shape, in_dt, act_dt, platform = rt._parse_aot_name(name, ext)
+        assert shape[1:] == (64, 64, 3) and platform == "cpu"
+        assert in_dt == act_dt and in_dt in ("bfloat16", "float32")
+        eng = Engine(out, device="cpu", dtype=getattr(torch, act_dt))
+        reg = eng._compiled if ext == rt.COMPILED_EXT else eng._aot
+        assert reg[shape] == os.path.join(aot_dir, name)
+    if flag == "--stablehlo":
+        meta = torch._inductor.aoti_load_package(
+            str(tmp_path / "native.pt2")).get_metadata()
+        assert meta["mt_kind"] == "detect"
+        assert meta["mt_input_shape"] == "1x64x64x3"
+        assert meta["mt_weights"] == "inside"
+        assert meta["mt_ops"] == "conv_f32,nms_argmax_ml"
+        assert rt._parse_aot_name("native.pt2") is None

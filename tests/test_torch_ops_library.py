@@ -1,0 +1,227 @@
+"""PyTorch port, the hand-written kernels as torch.library operators
+(ops/library.py, namespace mt).
+
+- `torch.library.opcheck` on every operator at small shapes on the CPU:
+  its schema, its fake implementation (shapes, dtypes, strides) against
+  the CPU implementation (the plain version), and its dispatch under
+  AOTAutograd with dynamic shapes.
+- Every public wrapper reaches its operator: a module calling the wrapper
+  exports (torch.export) to a graph holding the operator as one node, and
+  the exported program gives the wrapper's eager result bit for bit.
+- Every kernel launcher (an operator's CUDA implementation) refuses CPU
+  tensors: on the CPU only the plain versions run.
+- The registered schemas are ops/library.py's SCHEMAS, their one source
+  (the native driver's are held against them in test_torch_driver.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from yolov8_vit_tpu_torch import ops
+from yolov8_vit_tpu_torch.models.yolov8 import conv_f32
+from yolov8_vit_tpu_torch.ops import attention, fused_region, library, nms, \
+    quant
+
+OPS = list(library.SCHEMAS)
+
+
+def _g(seed=0):
+    return torch.Generator().manual_seed(seed)
+
+
+def _boxes(b, n, g):
+    xy = torch.rand(b, n, 2, generator=g) * 50
+    wh = torch.rand(b, n, 2, generator=g) * 20 + 1
+    return torch.cat([xy, xy + wh], dim=-1)
+
+
+def _i8(shape, g):
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+
+def _vec(n, g, lo=0.5, hi=1.5):
+    return torch.rand(n, generator=g) * (hi - lo) + lo
+
+
+def _region(g):
+    def conv(shape):
+        return {"conv": {"kernel": torch.randn(shape, generator=g) * 0.2,
+                         "bias": torch.randn(shape[-1], generator=g) * 0.1}}
+    c1, c2, c = 8, 16, 8
+    params = {"b1": conv((3, 3, c1, c2)), "cv1": conv((1, 1, c2, c2)),
+              "m0_cv1": conv((3, 3, c, c)), "m0_cv2": conv((3, 3, c, c)),
+              "cv2": conv((1, 1, 3 * c, c2))}
+    return params, fused_region.prepare_region(params, "cpu")
+
+
+def op_args(name: str):
+    """Small CPU arguments of operator `name`."""
+    g = _g()
+    if name in ("nms_argmax_ml", "nms_argmax"):
+        return (_boxes(2, 20, g), torch.rand(2, 20, 3, generator=g), 0.5,
+                0.3, 5, 1024, 64)
+    if name == "mask_scan":
+        return (_boxes(2, 10, g), torch.rand(2, 10, generator=g),
+                torch.rand(2, 10, generator=g) > 0.2, None, 0.45, 0.35,
+                1024, 64)
+    d, h = 32, 64
+    if name == "quant_mlp_ln":
+        return (torch.randn(6, d, generator=g), _vec(d, g), _vec(d, g, -.1, .1),
+                _i8((d, h), g), _vec(h, g, 1e-3, 2e-3), _vec(h, g, -.1, .1),
+                _i8((h, d), g), _vec(d, g, 1e-3, 2e-3), _vec(d, g, -.1, .1),
+                1e-6, None, None)
+    if name == "quant_mlp":
+        return (torch.randn(6, d, generator=g), torch.randn(6, d, generator=g),
+                _i8((d, h), g), _vec(h, g, 1e-3, 2e-3), _vec(h, g, -.1, .1),
+                _i8((h, d), g), _vec(d, g, 1e-3, 2e-3), _vec(d, g, -.1, .1),
+                None, None)
+    if name == "quant_dense":
+        return (torch.randn(6, d, generator=g), _i8((d, 48), g),
+                _vec(48, g, 1e-3, 2e-3), _vec(48, g, -.1, .1), True, None)
+    if name == "attn_block_i8":
+        return (torch.randn(2, 5, d, generator=g), _vec(d, g),
+                _vec(d, g, -.1, .1), _i8((d, 3 * d), g),
+                _vec(3 * d, g, 1e-3, 2e-3), _vec(3 * d, g, -.1, .1),
+                _i8((d, d), g), _vec(d, g, 1e-3, 2e-3), _vec(d, g, -.1, .1),
+                4, 1e-6, None, None, None)
+    if name == "attn_block":
+        return (torch.randn(2, 5, d, generator=g), _vec(d, g),
+                _vec(d, g, -.1, .1), torch.randn(d, 3 * d, generator=g) * .1,
+                _vec(3 * d, g, -.1, .1), torch.randn(d, d, generator=g) * .1,
+                _vec(d, g, -.1, .1), 4, 1e-6, 4)
+    if name == "flash_attention":
+        return tuple(torch.randn(2, 5, 4, 8, generator=g) for _ in range(3))
+    if name == "fused_b1b2":
+        _, prep = _region(g)
+        x = torch.randn(1, 8, 8, 8, generator=g).to(torch.bfloat16)
+        return x, prep.w, prep.bias, prep.c2
+    if name == "conv_f32":
+        x = torch.randn(1, 4, 6, 6, generator=g).to(
+            memory_format=torch.channels_last)
+        return (x, torch.randn(8, 4, 3, 3, generator=g), _vec(8, g), 2,
+                False)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_opcheck(name):
+    torch.library.opcheck(library.op(name), op_args(name))
+
+
+def test_schemas_are_the_one_source():
+    for name, schema in library.SCHEMAS.items():
+        assert library.schema_string(name) == f"mt::{name}{schema}"
+    # an operator for each kernel wrapper, and conv_f32
+    assert len(OPS) == len(ops.KERNEL_WRAPPERS) + 1
+
+
+def _wrapper_case(name):
+    """(callable of tensors, tensors) calling the public wrapper that
+    reaches operator `name`."""
+    a = op_args(name)
+    if name == "nms_argmax_ml":
+        return (lambda b, s: nms.efficient_nms_scan(b, s)), a[:2]
+    if name == "nms_argmax":
+        return (lambda b, s: nms.efficient_nms_scan(
+            b, s, multi_label=False)), a[:2]
+    if name == "mask_scan":
+        return nms.area_sorted_nms, a[:3]
+    if name == "quant_mlp_ln":
+        return quant.quant_mlp_ln_fused, a[:9]
+    if name == "quant_mlp":
+        return quant.quant_mlp_fused, a[:8]
+    if name == "quant_dense":
+        return (lambda *t: quant.quant_dense_fused(*t, silu=True)), a[:4]
+    if name == "attn_block_i8":
+        return (lambda *t: attention.fused_attention_block_i8(
+            *t, heads=4)), a[:9]
+    if name == "attn_block":
+        return (lambda *t: attention.fused_attention_block(
+            *t, heads=4, t_real=4)), a[:7]
+    if name == "flash_attention":
+        return attention.flash_attention, a
+    if name == "fused_b1b2":
+        params, _ = _region(_g())
+        return (lambda x: fused_region.fused_b1b2(x, params)), a[:1]
+    if name == "conv_f32":
+        return (lambda x, w, b: conv_f32(x, w, 2, b)), a[:3]
+    raise KeyError(name)
+
+
+class _Call(torch.nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *tensors):
+        return self.fn(*tensors)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_wrapper_exports_as_one_operator(name):
+    fn, args = _wrapper_case(name)
+    want = fn(*args)
+    ep = torch.export.export(_Call(fn), tuple(args))
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count(f"mt.{name}.default") == 1, targets
+    assert not any(t.startswith("mt.") and t != f"mt.{name}.default"
+                   for t in targets)
+    got = ep.module()(*args)
+    for g, w in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        assert torch.equal(g, w)
+
+
+LAUNCHERS = {"nms_argmax_ml": nms.nms_argmax_ml_kernel,
+             "nms_argmax": nms.nms_argmax_kernel,
+             "mask_scan": nms.mask_scan_op_kernel,
+             "quant_mlp_ln": quant.quant_mlp_ln_kernel,
+             "quant_mlp": quant.quant_mlp_kernel,
+             "quant_dense": quant.quant_dense_kernel,
+             "attn_block_i8": attention.attn_block_i8_kernel,
+             "attn_block": attention.attn_block_kernel,
+             "flash_attention": attention.flash_attention_kernel,
+             "fused_b1b2": fused_region.fused_b1b2_kernel}
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHERS))
+def test_launcher_refuses_cpu_tensors(name):
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="on the card only"):
+        LAUNCHERS[name](*op_args(name))
+    assert ops.launch_counts() == before
+
+
+def test_cpu_calls_count_no_launch():
+    ops.reset_launch_counts()
+    for name in OPS:
+        fn, args = _wrapper_case(name)
+        fn(*args)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_region_weights_round_trip():
+    """The CPU implementation of mt::fused_b1b2 reads the prepared flat
+    weights back to the params dict: both layouts (the fused widths' blocks
+    and the five-launch form's rows) give the plain version's result."""
+    g = _g(5)
+    for c1, c2 in ((8, 16), (16, 32)):
+        def conv(shape):
+            return {"conv": {"kernel": torch.randn(shape, generator=g) * .2,
+                             "bias": torch.randn(shape[-1], generator=g)}}
+        c = c2 // 2
+        params = {"b1": conv((3, 3, c1, c2)), "cv1": conv((1, 1, c2, c2)),
+                  "m0_cv1": conv((3, 3, c, c)), "m0_cv2": conv((3, 3, c, c)),
+                  "cv2": conv((1, 1, 3 * c, c2))}
+        prep = fused_region.prepare_region(params, "cpu")
+        back = fused_region.region_params_of(prep.w, prep.bias, c1, c2)
+        for k in params:
+            k0 = params[k]["conv"]["kernel"].to(torch.bfloat16)
+            assert torch.equal(back[k]["conv"]["kernel"], k0)
+            assert torch.equal(back[k]["conv"]["bias"],
+                               params[k]["conv"]["bias"])
+        x = torch.from_numpy(np.random.default_rng(c1).normal(
+            size=(1, 8, 8, c1)).astype(np.float32)).to(torch.bfloat16)
+        assert torch.equal(fused_region.fused_b1b2(x, prep),
+                           fused_region.region_b1b2_plain(x, params))

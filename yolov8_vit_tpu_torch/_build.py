@@ -7,7 +7,11 @@ machines without nvcc or a GPU, where every kernel wrapper runs its plain
 PyTorch version on CPU tensors instead.  The host library (`csrc/host/`:
 JPEG / PNG / BMP / PPM decode and the letterbox, runtime/native.py)
 compiles with the host C++ compiler, with JPEG and PNG decode where
-libjpeg and libpng are found (`build_host`).
+libjpeg and libpng are found (`build_host`).  The native driver
+`mt_infer` (`csrc/driver/mt_infer.cc`, the host sources beside it)
+compiles with the host C++ compiler against the wheel's libtorch
+(`build_driver`): on a machine with the CUDA headers with its CUDA
+operators, which open the kernel libraries built here.
 
 The build directory `_build/` beside this file is listed in .gitignore;
 library names carry a hash of the sources and flags, so an edited source
@@ -63,6 +67,13 @@ HOST_OPTIONAL = {
             "int main() { return png_sig_cmp(nullptr, 0, 0); }\n"),
 }
 
+# the native driver: sources, and the kernel libraries it opens (macro of
+# the path each is baked into)
+DRIVER_SOURCES = ("driver/mt_infer.cc", "host/imgproc.cc")
+DRIVER_LIB_MACROS = {"nms": "MT_LIB_NMS", "quant_mlp": "MT_LIB_QUANT_MLP",
+                     "attention": "MT_LIB_ATTENTION",
+                     "fused_region": "MT_LIB_FUSED_REGION"}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -98,6 +109,35 @@ def _cxx() -> str:
 
 
 _host_features: dict | None = None
+_openmp_cxx: list = []      # [compiler or None], found once a process
+
+
+def openmp_cxx() -> str | None:
+    """A host C++ compiler that compiles and links an OpenMP program (what
+    AOTInductor's generated C++ needs: it adds -fopenmp), or None: $CXX,
+    g++ on PATH, /usr/bin/g++, clang++, the first that does.  A compiler
+    can lack OpenMP's runtime (a gcc without libgomp.spec, such as a
+    toolchain wrapper ahead of the system's g++ on PATH) and still build
+    the port's libraries, which use none."""
+    if not _openmp_cxx:
+        found = None
+        seen = set()
+        prog = ("#include <omp.h>\nint main() { return "
+                "omp_get_max_threads() > 0 ? 0 : 1; }\n").encode()
+        for c in (os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++",
+                  shutil.which("clang++")):
+            if not c or c in seen or not os.path.exists(c):
+                continue
+            seen.add(c)
+            run = subprocess.run([c, "-x", "c++", "-fopenmp", "-", "-o",
+                                  os.devnull], input=prog,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+            if run.returncode == 0:
+                found = c
+                break
+        _openmp_cxx.append(found)
+    return _openmp_cxx[0]
 
 
 def host_features() -> dict[str, str | None]:
@@ -159,6 +199,93 @@ def build_host() -> str:
     with open(out + ".log", "w") as fh:
         fh.write(" ".join(cmd) + "\n" + log
                  + "".join(f"without {k}: {v}\n" for k, v in missing.items()))
+    if run.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({run.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return out
+
+
+def cuda_include() -> str | None:
+    """The CUDA toolkit's include directory where this torch is a CUDA
+    build and the headers are installed, else None."""
+    inc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                       "include")
+    if torch.version.cuda is None or not os.path.exists(
+            os.path.join(inc, "cuda_runtime_api.h")):
+        return None
+    return inc
+
+
+def driver_schemas_header() -> str:
+    """mt_schemas.h: the mt operators' schemas (ops/library.py SCHEMAS,
+    their one source) as the driver's TORCH_LIBRARY definitions."""
+    from yolov8_vit_tpu_torch.ops.library import NAMESPACE, SCHEMAS
+    defs = "".join(f'  m.def("{name}{schema}"); \\\n'
+                   for name, schema in SCHEMAS.items())
+    names = ", ".join(f'"{NAMESPACE}::{n}"' for n in SCHEMAS)
+    return ("// generated by yolov8_vit_tpu_torch/_build.py from "
+            "ops/library.py SCHEMAS\n#pragma once\n"
+            f"#define MT_DEFINE_OPS(m) \\\n{defs}\n"
+            f"static const char* const kMtOps[] = {{{names}}};\n")
+
+
+def _driver_flags() -> tuple[list[str], list[str]]:
+    """(compiler flags, link flags) of the driver on this machine: with
+    the CUDA operators where `cuda_include()` finds the headers (the
+    kernel libraries' paths baked in as macros, so they are built
+    first), without them elsewhere."""
+    tdir = os.path.dirname(torch.__file__)
+    inc, lib_dir = os.path.join(tdir, "include"), os.path.join(tdir, "lib")
+    host, host_libs = _host_flags()
+    flags = ["-O2", "-std=c++17", "-fPIC", "-w",
+             f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+             "-I", inc, "-I", os.path.join(inc, "torch", "csrc", "api",
+                                           "include"),
+             "-I", os.path.join(_CSRC, "host"), "-I", BUILD_DIR]
+    flags += [f for f in host if f.startswith("-D")]
+    torch_libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    cuda_inc = cuda_include()
+    if cuda_inc is not None:
+        build()
+        flags += ["-DMT_WITH_CUDA", "-I", cuda_inc]
+        flags += [f'-D{macro}="{_lib_path(name)}"'
+                  for name, macro in DRIVER_LIB_MACROS.items()]
+        torch_libs += ["-ltorch_cuda", "-lc10_cuda"]
+    link = ["-L", lib_dir, f"-Wl,-rpath,{lib_dir}", "-Wl,--no-as-needed",
+            *torch_libs, "-Wl,--as-needed", *host_libs, "-ldl"]
+    return flags, link
+
+
+def build_driver() -> str:
+    """Compile the native driver `mt_infer` if it is missing; returns its
+    path (`_build/mt_infer-<hash>`, the hash over its sources, the
+    generated schema header and the flags).  On a machine with the CUDA
+    headers the kernel libraries are built first and their paths baked in.
+    The compiler's output is kept beside it (`<path>.log`); a failed build
+    raises with that output."""
+    header = driver_schemas_header()
+    flags, link = _driver_flags()
+    h = hashlib.sha256(" ".join(flags + link).encode() + header.encode())
+    for f in DRIVER_SOURCES + HOST_HEADERS:
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    out = os.path.join(BUILD_DIR, f"mt_infer-{h.hexdigest()[:16]}")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "mt_schemas.h"), "w") as fh:
+        fh.write(header)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_cxx(), *flags, "-o", tmp,
+           *(os.path.join(_CSRC, f) for f in DRIVER_SOURCES), *link]
+    run = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT)
+    log = run.stdout.decode(errors="replace")
+    with open(out + ".log", "w") as fh:
+        fh.write(" ".join(cmd) + "\n" + log)
     if run.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -242,6 +369,16 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def require_cuda(*tensors) -> None:
+    """A kernel's launcher (an operator's CUDA implementation, which the
+    dispatcher picks when any tensor is on the card): every tensor on one
+    CUDA device, else ValueError."""
+    kinds = {t.device.type for t in tensors}
+    if kinds != {"cuda"}:
+        raise ValueError(f"a kernel takes tensors on the card only; got "
+                         f"{sorted(kinds)}")
 
 
 def on_cpu(*tensors) -> bool:

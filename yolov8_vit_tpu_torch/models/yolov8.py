@@ -22,13 +22,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolov8_vit_tpu_torch.ops.library import TF32_LOCK as _TF32_LOCK
+from yolov8_vit_tpu_torch.ops.library import cudnn_tf32 as _cudnn_tf32
 from yolov8_vit_tpu_torch.weights import leaves_to_parameters
 
 
@@ -94,28 +95,6 @@ class Conv(nn.Module):
         self.bias.fill_(self.bias_init)
 
 
-# cuDNN's TF32 switch is one flag of the process, and the service runs
-# requests on threads: the set, the conv launch and the restore hold this
-# lock, so no conv of conv_f32 runs under another call's setting and the
-# flag ends as it started.  (A conv outside conv_f32 that runs meanwhile,
-# as the plain version of kernel J does, sees either setting; its operands
-# hold bf16 values, exact in TF32, so its result is the same.)
-_TF32_LOCK = threading.RLock()
-
-
-@contextlib.contextmanager
-def _cudnn_tf32(allow: bool):
-    """cuDNN's TF32 switch for the convolutions inside the block only,
-    under _TF32_LOCK."""
-    with _TF32_LOCK:
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = allow
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
-
-
 @contextlib.contextmanager
 def f32_training():
     """Full f32 convolutions and matmuls for a whole training step, under
@@ -143,7 +122,15 @@ def conv_f32(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     operands hold bf16 values (`operands_in_bf16`), cuDNN may run it in
     TF32: a bf16 value is exact in TF32, so every product is exact and the
     sum is f32 as XLA's bf16 conv with f32 accumulation computes it.
-    Otherwise TF32 is off (full f32 products), whatever the global flag."""
+    Otherwise TF32 is off (full f32 products), whatever the global flag.
+    While a graph is traced (torch.export, AOTInductor) the conv is the
+    operator mt::conv_f32, which carries the switch into the graph: a
+    traced F.conv2d would run under whatever switch holds where the graph
+    runs.  Eagerly it is F.conv2d itself, which autograd differentiates
+    (the training forms); the operator has no backward."""
+    if torch.compiler.is_compiling():
+        return torch.ops.mt.conv_f32(x, kernel, bias, stride,
+                                     operands_in_bf16)
     k = kernel.shape[-1]
     with _cudnn_tf32(operands_in_bf16):
         return F.conv2d(x, kernel, bias, stride=stride, padding=k // 2)

@@ -30,6 +30,10 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
     interp_matrix, resize_bilinear, resize_bilinear_mm, resize_nearest,
 )
 
+# registers the kernels as torch.library operators (mt::*), which the
+# wrappers call (`ops.library`, not an exported name)
+import yolov8_vit_tpu_torch.ops.library  # noqa: F401,E402
+
 # the wrappers that launch a CUDA kernel, each with its `launches` count
 # (kernels A-F, then G-J; A, B and I are three forms of one ordered-scan
 # kernel, csrc/nms.cu `greedy_nms_kernel`; I is

@@ -148,16 +148,34 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     is zero-padded to the one it runs (`_core_head_dim`), the weights laid
     out so per call (`_head_padded_i8`).  CUDA tensors launch
     kernel D; CPU tensors run the plain version."""
-    b, t, d = x.shape
     f32 = torch.float32
-    xc = x.contiguous()
     vecs = [v.to(f32).contiguous()
             for v in (ln_scale, ln_bias, sqkv, bqkv, sproj, bproj)]
-    if _build.on_cpu(xc, wqkv_i8, wproj_i8, *vecs):
-        return attn_block_i8_plain(xc, vecs[0], vecs[1], wqkv_i8, vecs[2],
-                                   vecs[3], wproj_i8, vecs[4], vecs[5],
-                                   heads=heads, ln_eps=ln_eps, t_real=t_real)
-    dt = x.dtype
+    return torch.ops.mt.attn_block_i8(
+        x.contiguous(), vecs[0], vecs[1], wqkv_i8, vecs[2], vecs[3],
+        wproj_i8, vecs[4], vecs[5], heads, ln_eps, t_real, wqkv_t, wproj_t)
+
+
+def attn_block_i8_op_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
+                           wproj_i8, sproj, bproj, heads, ln_eps, t_real,
+                           wqkv_t, wproj_t):
+    """Operator mt::attn_block_i8 on the CPU."""
+    return attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
+                               wproj_i8, sproj, bproj, heads=heads,
+                               ln_eps=ln_eps, t_real=t_real)
+
+
+def attn_block_i8_kernel(xc, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
+                         wproj_i8, sproj, bproj, heads, ln_eps, t_real,
+                         wqkv_t, wproj_t) -> torch.Tensor:
+    """Kernel D on CUDA tensors (operator mt::attn_block_i8): xc (B, T, D)
+    contiguous, the vectors f32 contiguous.  Counted on
+    fused_attention_block_i8."""
+    vecs = [ln_scale, ln_bias, sqkv, bqkv, sproj, bproj]
+    _build.require_cuda(xc, wqkv_i8, wproj_i8, *vecs)
+    b, t, d = xc.shape
+    f32 = torch.float32
+    dt = xc.dtype
     hd = d // heads if heads and d % heads == 0 else 0
     if dt not in DTYPE_CODES or not hd:
         raise ValueError(f"kernel D takes f32/bf16 with D a multiple of "
@@ -172,7 +190,7 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
     m = b * t
     dp, dh = round_up16(d), heads * hdp
     xp = pad_cols(xc.reshape(m, d), dp)
-    dev = x.device
+    dev = xc.device
     hq = torch.empty(m, dp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
     qkv = torch.empty(m, 3 * dh, dtype=dt, device=dev)
@@ -197,7 +215,7 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
             out.data_ptr(), _build.stream_ptr())
     fused_attention_block_i8.launches += 1
     _build.check(so, rc, "attn_block_i8 (kernel D)")
-    return out[:, :d].reshape(b, t, d)
+    return out[:, :d].reshape(b, t, d).contiguous()
 
 
 fused_attention_block_i8.launches = 0
@@ -247,23 +265,37 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
     runs (`_core_head_dim`), each head's QKV columns and proj rows laid out
     so per call (as D's).  CUDA tensors launch kernel E; CPU tensors run the
     plain version."""
-    b, t, d = x.shape
     dt = x.dtype
     f32 = torch.float32
-    xc = x.contiguous()
-    wq = wqkv.to(dt).contiguous()
-    wp = wproj.to(dt).contiguous()
     vecs = [v.to(f32).contiguous() for v in (ln_scale, ln_bias, bqkv, bproj)]
-    if _build.on_cpu(xc, wq, wp, *vecs):
-        return fused_attention_block_plain(
-            xc, vecs[0], vecs[1], wq, vecs[2], wp, vecs[3], heads=heads,
-            ln_eps=ln_eps, t_real=t_real)
+    return torch.ops.mt.attn_block(
+        x.contiguous(), vecs[0], vecs[1], wqkv.to(dt).contiguous(), vecs[2],
+        wproj.to(dt).contiguous(), vecs[3], heads, ln_eps, t_real)
+
+
+def attn_block_op_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                        heads, ln_eps, t_real):
+    """Operator mt::attn_block on the CPU."""
+    return fused_attention_block_plain(x, ln_scale, ln_bias, wqkv, bqkv,
+                                       wproj, bproj, heads=heads,
+                                       ln_eps=ln_eps, t_real=t_real)
+
+
+def attn_block_kernel(xc, ln_scale, ln_bias, wq, bqkv, wp, bproj, heads,
+                      ln_eps, t_real) -> torch.Tensor:
+    """Kernel E on CUDA tensors (operator mt::attn_block): xc (B, T, D)
+    and the weights in its dtype, contiguous; vectors f32.  Counted on
+    fused_attention_block."""
+    vecs = [ln_scale, ln_bias, bqkv, bproj]
+    _build.require_cuda(xc, wq, wp, *vecs)
+    b, t, d = xc.shape
+    dt = xc.dtype
     hdp = _padded_head_dim(dt, d, heads, "kernel E")
     hd = d // heads
     if hdp != hd:
         wq, vecs[2], wp = _head_padded_float(wq, vecs[2], wp, heads, hdp)
     m = b * t
-    dev = x.device
+    dev = xc.device
     dh = heads * hdp
     h = torch.empty(m, d, dtype=dt, device=dev)
     qkv = torch.empty(m, 3 * dh, dtype=dt, device=dev)
@@ -323,8 +355,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     it runs (`_core_head_dim`): q, k and v copied into padded buffers, the
     output sliced (the scale stays the real hd^-0.5).  CUDA
     tensors launch kernel F; CPU tensors run the plain version."""
-    if _build.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v)
+    return torch.ops.mt.flash_attention(q, k, v)
+
+
+def flash_attention_kernel(q, k, v) -> torch.Tensor:
+    """Kernel F on CUDA tensors (operator mt::flash_attention), read in
+    place where `_strided_ok`.  Counted on flash_attention."""
+    _build.require_cuda(q, k, v)
     b, t, heads, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape \
             or len({q.dtype, k.dtype, v.dtype}) != 1:
@@ -348,7 +385,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             out.data_ptr(), _build.stream_ptr())
     flash_attention.launches += 1
     _build.check(so, rc, "flash_attention (kernel F)")
-    return out if hdp == hd else out[..., :hd]
+    return out if hdp == hd else out[..., :hd].contiguous()
 
 
 flash_attention.launches = 0

@@ -135,8 +135,7 @@ def prepare_region(params: dict, device="cuda") -> RegionWeights:
     ws = [_kb(params, n, dev) for n in PARAM_NAMES]
     c1, c2 = ws[0][0].shape[2], ws[0][0].shape[3]
     c = c2 // 2
-    shapes = [(3, 3, c1, c2), (1, 1, c2, c2), (3, 3, c, c), (3, 3, c, c),
-              (1, 1, 3 * c, c2)]
+    shapes = _stage_shapes(c1, c2)
     got = [tuple(k.shape) for k, _ in ws]
     if got != shapes or c1 % 8 or c % 8:
         raise ValueError(f"kernel J's params: conv kernels {shapes} with c1 "
@@ -153,31 +152,67 @@ def fused_b1b2(x: torch.Tensor, params) -> torch.Tensor:
     (B, H/2, W/2, c2) bf16.  params: {b1, cv1, m0_cv1, m0_cv2, cv2}, each
     {"conv": {"kernel" HWIO, "bias"}} (`region_params` makes it from a
     detector's tree), or the `RegionWeights` that `prepare_region` made of
-    it once (a dict is prepared again every call).  CUDA tensors launch
-    kernel J (H and W even; (c1, c2) in FUSED_WIDTHS, or c1 and c2 / 2
-    multiples of 16); CPU tensors run the plain version."""
-    prep = params if isinstance(params, RegionWeights) else None
-    if _build.on_cpu(x):
-        return region_b1b2_plain(x, params if prep is None else prep.params)
-    if prep is None:
-        prep = prepare_region(params, x.device)
-    b, h, w, c1 = x.shape
-    if x.dtype != torch.bfloat16 or c1 != prep.c1 or h % 2 or w % 2 \
-            or prep.w.device != x.device \
-            or not (prep.fused or (prep.c1 % 16 == 0
-                                   and prep.c2 % 32 == 0)):
+    it once (a dict is prepared again every call).  Operator
+    mt::fused_b1b2 on the prepared weights: CUDA tensors launch kernel J
+    (H and W even; (c1, c2) in FUSED_WIDTHS, or c1 and c2 / 2 multiples of
+    16); CPU tensors run the plain version on them."""
+    prep = params if isinstance(params, RegionWeights) \
+        else prepare_region(params, x.device)
+    return torch.ops.mt.fused_b1b2(x, prep.w, prep.bias, prep.c2)
+
+
+def _stage_shapes(c1: int, c2: int) -> list[tuple[int, int, int, int]]:
+    """The five stages' HWIO kernel shapes, in the order of PARAM_NAMES."""
+    c = c2 // 2
+    return [(3, 3, c1, c2), (1, 1, c2, c2), (3, 3, c, c), (3, 3, c, c),
+            (1, 1, 3 * c, c2)]
+
+
+def region_params_of(w: torch.Tensor, bias: torch.Tensor, c1: int,
+                     c2: int) -> dict:
+    """`prepare_region`'s flat weights and biases back to the params dict
+    of `region_b1b2_plain` (the kernels rounded to bf16, which the plain
+    version does itself)."""
+    fused = (c1, c2) in FUSED_WIDTHS
+    params, wo, bo = {}, 0, 0
+    for name, (kh, kw, cin, cout) in zip(PARAM_NAMES, _stage_shapes(c1, c2)):
+        n = kh * kw * cin * cout
+        flat = w[wo:wo + n]
+        if fused:     # weight_blocks' layout
+            k = flat.reshape(kh * kw, cin // 8, cout, 8).permute(0, 1, 3, 2)
+        else:         # weight_rows'
+            k = flat.reshape(cout, kh, kw, cin).permute(1, 2, 3, 0)
+        params[name] = {"conv": {"kernel": k.reshape(kh, kw, cin, cout),
+                                 "bias": bias[bo:bo + cout]}}
+        wo, bo = wo + n, bo + cout
+    return params
+
+
+def fused_b1b2_op_plain(x, w, bias, c2):
+    """Operator mt::fused_b1b2 on the CPU: the plain version on the
+    prepared weights."""
+    return region_b1b2_plain(x, region_params_of(w, bias, x.shape[-1], c2))
+
+
+def fused_b1b2_kernel(x, w, bias, c2) -> torch.Tensor:
+    """Kernel J on CUDA tensors (operator mt::fused_b1b2): x (B, H, W, c1)
+    bf16, w and bias `prepare_region`'s.  Counted on fused_b1b2."""
+    _build.require_cuda(x, w, bias)
+    b, h, wd, c1 = x.shape
+    fused = (c1, c2) in FUSED_WIDTHS
+    if x.dtype != torch.bfloat16 or h % 2 or wd % 2 \
+            or not (fused or (c1 % 16 == 0 and c2 % 32 == 0)):
         raise ValueError(f"kernel J takes bf16 (B, H, W, c1) on the weights' "
                          f"device, H and W even, (c1, c2) in "
                          f"{FUSED_WIDTHS} or c1 and c2 / 2 multiples of 16; "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}, "
-                         f"(c1, c2) = ({prep.c1}, {prep.c2}) on "
-                         f"{prep.w.device}")
+                         f"(c1, c2) = ({c1}, {c2}) on {w.device}")
     xc = x.contiguous()
-    out = torch.empty(b, h // 2, w // 2, prep.c2, dtype=torch.bfloat16,
+    out = torch.empty(b, h // 2, wd // 2, c2, dtype=torch.bfloat16,
                       device=x.device)
     # y, y1 (c2 channels each), m1 and the bottleneck's output (c2 / 2)
-    scratch = None if prep.fused else torch.empty(
-        b * (h // 2) * (w // 2) * 3 * prep.c2, dtype=torch.bfloat16,
+    scratch = None if fused else torch.empty(
+        b * (h // 2) * (wd // 2) * 3 * c2, dtype=torch.bfloat16,
         device=x.device)
     so = _build.lib("fused_region")
     fn = so.launch_fused_b1b2
@@ -185,8 +220,7 @@ def fused_b1b2(x: torch.Tensor, params) -> torch.Tensor:
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
-    rc = fn(xc.data_ptr(), b, h, w, c1, prep.c2, prep.w.data_ptr(),
-            prep.bias.data_ptr(),
+    rc = fn(xc.data_ptr(), b, h, wd, c1, c2, w.data_ptr(), bias.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             _build.stream_ptr())
     fused_b1b2.launches += 1

@@ -55,6 +55,13 @@ _ARGTYPES = {
 _launchers: dict = {}
 
 
+def _window_chunk(window, chunk) -> tuple[int, int]:
+    """A launch's window and chunk: as given, else NMS_WINDOW and
+    NMS_CHUNK as they are now."""
+    return (NMS_WINDOW if window is None else window,
+            NMS_CHUNK if chunk is None else chunk)
+
+
 def _launcher(name: str):
     """The nms library's C function `name`, its argtypes set once a
     process."""
@@ -195,12 +202,9 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
     if boxes.shape != (b, n, 4):
         raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
                          f"{tuple(scores.shape)}")
-    if _build.on_cpu(boxes, scores):
-        out = nms_argmax_ml_plain(boxes, scores, iou_threshold,
-                                  score_threshold, max_output)
-    else:
-        out = nms_argmax_ml_kernel(boxes, scores, iou_threshold,
-                                   score_threshold, max_output)
+    out = torch.ops.mt.nms_argmax_ml(boxes, scores, iou_threshold,
+                                     score_threshold, max_output, NMS_WINDOW,
+                                     NMS_CHUNK)
     if single:
         out = tuple(o[0] for o in out)
     return out
@@ -209,12 +213,24 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
 efficient_nms_scan.launches = 0
 
 
+def nms_argmax_ml_op_plain(boxes, scores, iou_threshold, score_threshold,
+                           max_output, window, chunk):
+    """Operator mt::nms_argmax_ml on the CPU: the plain version (the
+    kernel's window and chunk do not change what it computes)."""
+    return nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
+                               max_output)
+
+
 def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
                          iou_threshold: float, score_threshold: float,
-                         max_output: int):
-    """Kernel A on CUDA tensors: boxes (B, N, 4) and scores (B, N, C) f32
-    contiguous -> the outputs of `nms_argmax_ml_plain`.  Any N * C is
-    taken.  Counted on efficient_nms_scan."""
+                         max_output: int, window: int | None = None,
+                         chunk: int | None = None):
+    """Kernel A on CUDA tensors (operator mt::nms_argmax_ml): boxes (B, N,
+    4) and scores (B, N, C) f32 contiguous -> the outputs of
+    `nms_argmax_ml_plain`.  Any N * C is taken; window and chunk default to
+    NMS_WINDOW and NMS_CHUNK.  Counted on efficient_nms_scan."""
+    _build.require_cuda(boxes, scores)
+    window, chunk = _window_chunk(window, chunk)
     if score_threshold < -1.0:
         # killed entries hold -1: below it the TPU kernel picks them again
         raise ValueError(f"kernel A takes score_threshold >= -1; got "
@@ -231,7 +247,7 @@ def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
     pool = torch.empty(b, n * c, dtype=torch.int64, device=dev)
     rc = _launcher("launch_nms_argmax_ml")(
         boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
-        score_threshold, max_output, NMS_WINDOW, NMS_CHUNK, pool.data_ptr(),
+        score_threshold, max_output, window, chunk, pool.data_ptr(),
         num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
         _build.stream_ptr())
     efficient_nms_scan.launches += 1
@@ -252,24 +268,32 @@ def nms_single_label(boxes, scores, iou_threshold, score_threshold,
     if boxes.shape != (b, n, 4):
         raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
                          f"{tuple(scores.shape)}")
-    if _build.on_cpu(boxes, scores):
-        out = nms_argmax_plain(boxes, *single_label_candidates(boxes, scores),
-                               iou_threshold, score_threshold, max_output)
-    else:
-        out = nms_argmax_kernel(boxes, scores, iou_threshold,
-                                score_threshold, max_output)
+    out = torch.ops.mt.nms_argmax(boxes, scores, iou_threshold,
+                                  score_threshold, max_output, NMS_WINDOW,
+                                  NMS_CHUNK)
     if single:
         out = tuple(o[0] for o in out)
     return out
 
 
+def nms_argmax_op_plain(boxes, scores, iou_threshold, score_threshold,
+                        max_output, window, chunk):
+    """Operator mt::nms_argmax on the CPU: `nms_argmax_plain` on
+    `single_label_candidates(boxes, scores)`."""
+    return nms_argmax_plain(boxes, *single_label_candidates(boxes, scores),
+                            iou_threshold, score_threshold, max_output)
+
+
 def nms_argmax_kernel(boxes, scores, iou_threshold, score_threshold,
-                      max_output):
-    """Kernel I on CUDA tensors: boxes (B, N, 4) and scores (B, N, C) f32
-    contiguous -> the outputs of `nms_argmax_plain` on
-    `single_label_candidates(boxes, scores)`, which the kernel takes
-    itself (each anchor's best class, the class-band side).  Any number of
-    anchors is taken.  Counted on nms_single_label."""
+                      max_output, window=None, chunk=None):
+    """Kernel I on CUDA tensors (operator mt::nms_argmax): boxes (B, N, 4)
+    and scores (B, N, C) f32 contiguous -> the outputs of
+    `nms_argmax_plain` on `single_label_candidates(boxes, scores)`, which
+    the kernel takes itself (each anchor's best class, the class-band
+    side).  Any number of anchors is taken; window and chunk as A's.
+    Counted on nms_single_label."""
+    _build.require_cuda(boxes, scores)
+    window, chunk = _window_chunk(window, chunk)
     if score_threshold < -1.0:
         raise ValueError(f"kernel I takes score_threshold >= -1; got "
                          f"{score_threshold}")
@@ -282,7 +306,7 @@ def nms_argmax_kernel(boxes, scores, iou_threshold, score_threshold,
     pool = torch.empty(b, n, dtype=torch.int64, device=dev)
     rc = _launcher("launch_nms_argmax")(
         boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
-        score_threshold, max_output, NMS_WINDOW, NMS_CHUNK, pool.data_ptr(),
+        score_threshold, max_output, window, chunk, pool.data_ptr(),
         num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
         _build.stream_ptr())
     nms_single_label.launches += 1
@@ -328,14 +352,38 @@ def mask_priority(boxes: torch.Tensor, scores: torch.Tensor,
                        _KILLED).contiguous()
 
 
+def mask_scan_op_plain(boxes, scores, valid, pri, iou_threshold,
+                       score_threshold, window, chunk):
+    """Operator mt::mask_scan on the CPU: `mask_scan_plain` on `pri`, or on
+    `mask_priority(boxes, scores, valid, score_threshold)` where the
+    caller gave scores and valid."""
+    if pri is None:
+        pri = mask_priority(boxes, scores, valid, score_threshold)
+    return mask_scan_plain(boxes, pri, iou_threshold)
+
+
+def mask_scan_op_kernel(boxes, scores, valid, pri, iou_threshold,
+                        score_threshold, window, chunk):
+    """Operator mt::mask_scan on CUDA tensors: `mask_scan_kernel`."""
+    return mask_scan_kernel(boxes, scores, valid, iou_threshold,
+                            score_threshold, pri=pri, window=window,
+                            chunk=chunk)
+
+
 def mask_scan_kernel(boxes: torch.Tensor, scores, valid,
                      iou_threshold: float, score_threshold: float, *,
-                     pri=None) -> torch.Tensor:
+                     pri=None, window: int | None = None,
+                     chunk: int | None = None) -> torch.Tensor:
     """Kernel B on CUDA tensors: boxes (B, T, 4) f32 contiguous, and either
     scores (B, T) f32 and valid (B, T) bool, whose priorities the kernel
     makes as `mask_priority` does for f32 inputs, or `pri` (B, T) f32 made
     by the caller (scores and valid None) -> keep (B, T) bool.  Any T is
-    taken.  Counted on area_sorted_nms."""
+    taken; window and chunk as A's.  Counted on area_sorted_nms."""
+    _build.require_cuda(*(v for v in (boxes, scores, valid, pri)
+                          if v is not None))
+    if (pri is None) == (scores is None or valid is None):
+        raise ValueError("kernel B takes scores and valid, or pri")
+    window, chunk = _window_chunk(window, chunk)
     b, t = boxes.shape[:2]
     dev = boxes.device
     keep = torch.empty(b, t, dtype=torch.bool, device=dev)
@@ -345,7 +393,7 @@ def mask_scan_kernel(boxes: torch.Tensor, scores, valid,
         scores.data_ptr(), valid.data_ptr(), None)
     rc = _launcher("launch_mask_scan")(
         boxes.data_ptr(), *ptrs, b, t, iou_threshold, score_threshold,
-        NMS_WINDOW, NMS_CHUNK, pool.data_ptr(), kept.data_ptr(),
+        window, chunk, pool.data_ptr(), kept.data_ptr(),
         keep.data_ptr(),
         _build.stream_ptr())
     area_sorted_nms.launches += 1
@@ -369,19 +417,16 @@ def area_sorted_nms(boxes: torch.Tensor, scores: torch.Tensor,
         boxes, scores, valid = boxes[None], scores[None], valid[None]
     valid = valid.to(torch.bool)
     f32 = torch.float32
-    if _build.on_cpu(boxes, scores, valid):
-        pri = mask_priority(boxes, scores, valid, score_threshold)
-        keep = mask_scan_plain(boxes.to(f32).contiguous(), pri,
-                               iou_threshold)
-    elif boxes.dtype == f32 and scores.dtype == f32:
-        keep = mask_scan_kernel(boxes.contiguous(), scores.contiguous(),
-                                valid.contiguous(), iou_threshold,
-                                score_threshold)
+    if not _build.on_cpu(boxes, scores, valid) \
+            and boxes.dtype == f32 and scores.dtype == f32:
+        keep = torch.ops.mt.mask_scan(
+            boxes.contiguous(), scores.contiguous(), valid.contiguous(),
+            None, iou_threshold, score_threshold, NMS_WINDOW, NMS_CHUNK)
     else:
-        keep = mask_scan_kernel(
-            boxes.to(f32).contiguous(), None, None, iou_threshold,
-            score_threshold,
-            pri=mask_priority(boxes, scores, valid, score_threshold))
+        keep = torch.ops.mt.mask_scan(
+            boxes.to(f32).contiguous(), None, None,
+            mask_priority(boxes, scores, valid, score_threshold),
+            iou_threshold, score_threshold, NMS_WINDOW, NMS_CHUNK)
     return keep[0] if single else keep
 
 

@@ -234,22 +234,37 @@ def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
 
     x (..., D) f32 or bf16; w1 (D, H) and w2 (H, D) int8 in the JAX (in,
     out) layout (w1_t, w2_t: their (out, in) copies, see the module note);
-    scales, biases and LN params f32.  CUDA tensors launch kernel C; CPU
-    tensors run the plain version."""
+    scales, biases and LN params f32.  Operator mt::quant_mlp_ln: CUDA
+    tensors launch kernel C; CPU tensors run the plain version."""
     *lead, d = x.shape
     xm = x.reshape(-1, d).contiguous()
     f32 = torch.float32
     vecs = [v.to(f32).contiguous() for v in (ln_scale, ln_bias, s1, b1, s2, b2)]
-    if _build.on_cpu(xm, w1_i8, w2_i8, *vecs):
-        return quant_mlp_ln_plain(xm, vecs[0], vecs[1], w1_i8, vecs[2],
-                                  vecs[3], w2_i8, vecs[4], vecs[5],
-                                  ln_eps).reshape(*lead, d)
+    return torch.ops.mt.quant_mlp_ln(
+        xm, vecs[0], vecs[1], w1_i8, vecs[2], vecs[3], w2_i8, vecs[4],
+        vecs[5], ln_eps, w1_t, w2_t).reshape(*lead, d)
+
+
+def quant_mlp_ln_op_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2,
+                          b2, ln_eps, w1_t, w2_t):
+    """Operator mt::quant_mlp_ln on the CPU (the transposed copies are the
+    kernel's)."""
+    return quant_mlp_ln_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2,
+                              b2, ln_eps)
+
+
+def quant_mlp_ln_kernel(xm, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
+                        ln_eps, w1_t, w2_t) -> torch.Tensor:
+    """Kernel C on CUDA rows (M, D) (operator mt::quant_mlp_ln).  Counted
+    on quant_mlp_ln_fused."""
+    _build.require_cuda(xm, w1_i8, w2_i8, ln_scale, ln_bias, s1, b1, s2, b2)
+    d = xm.shape[1]
     so, rc, out = _launch_mlp(
-        "kernel C", xm, xm, vecs[:2], transposed_i8(w1_i8, w1_t), vecs[2],
-        vecs[3], transposed_i8(w2_i8, w2_t), vecs[4], vecs[5], ln_eps)
+        "kernel C", xm, xm, (ln_scale, ln_bias), transposed_i8(w1_i8, w1_t),
+        s1, b1, transposed_i8(w2_i8, w2_t), s2, b2, ln_eps)
     quant_mlp_ln_fused.launches += 1
     _build.check(so, rc, "quant_mlp_ln (kernel C)")
-    return out[:, :d].reshape(*lead, d)
+    return out[:, :d].contiguous()
 
 
 quant_mlp_ln_fused.launches = 0
@@ -269,26 +284,41 @@ def quant_mlp_fused(h: torch.Tensor, residual: torch.Tensor, w1_i8, s1, b1,
 
     h, residual (..., D) f32 or bf16; w1 (D, H) and w2 (H, D) int8 in the
     JAX (in, out) layout (w1_t, w2_t: their (out, in) copies); scales and
-    biases f32.  CUDA tensors launch kernel H, which takes h and residual
-    in one dtype; CPU tensors run the plain version."""
+    biases f32.  Operator mt::quant_mlp: CUDA tensors launch kernel H,
+    which takes h and residual in one dtype; CPU tensors run the plain
+    version."""
     *lead, d = h.shape
     hm = h.reshape(-1, d).contiguous()
     rm = residual.reshape(-1, d).contiguous()
     f32 = torch.float32
     vecs = [v.to(f32).contiguous() for v in (s1, b1, s2, b2)]
-    if _build.on_cpu(hm, rm, w1_i8, w2_i8, *vecs):
-        return quant_mlp_plain(hm, rm, w1_i8, vecs[0], vecs[1], w2_i8,
-                               vecs[2], vecs[3]).reshape(*lead, d)
+    return torch.ops.mt.quant_mlp(hm, rm, w1_i8, vecs[0], vecs[1], w2_i8,
+                                  vecs[2], vecs[3], w1_t,
+                                  w2_t).reshape(*lead, d)
+
+
+def quant_mlp_op_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2, w1_t,
+                       w2_t):
+    """Operator mt::quant_mlp on the CPU."""
+    return quant_mlp_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2)
+
+
+def quant_mlp_kernel(hm, rm, w1_i8, s1, b1, w2_i8, s2, b2, w1_t,
+                     w2_t) -> torch.Tensor:
+    """Kernel H on CUDA rows (M, D) (operator mt::quant_mlp).  Counted on
+    quant_mlp_fused."""
+    _build.require_cuda(hm, rm, w1_i8, w2_i8, s1, b1, s2, b2)
     if rm.dtype != hm.dtype or rm.shape != hm.shape:
         raise ValueError(f"kernel H takes h and residual of one shape and "
                          f"dtype; got {tuple(hm.shape)} {hm.dtype} and "
                          f"{tuple(rm.shape)} {rm.dtype}")
+    d = hm.shape[1]
     so, rc, out = _launch_mlp(
-        "kernel H", hm, rm, None, transposed_i8(w1_i8, w1_t), vecs[0],
-        vecs[1], transposed_i8(w2_i8, w2_t), vecs[2], vecs[3], 0.0)
+        "kernel H", hm, rm, None, transposed_i8(w1_i8, w1_t), s1, b1,
+        transposed_i8(w2_i8, w2_t), s2, b2, 0.0)
     quant_mlp_fused.launches += 1
     _build.check(so, rc, "quant_mlp (kernel H)")
-    return out[:, :d].reshape(*lead, d)
+    return out[:, :d].contiguous()
 
 
 quant_mlp_fused.launches = 0
@@ -310,26 +340,40 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
     dynamic quantization, exact int8 product, (acc * s_x) * s_w + bias,
     optional SiLU in f32, one cast to x's dtype.
 
-    w_t: the (N, K) copy of w (see the module note).  CUDA tensors launch
-    kernel G; CPU tensors run the plain version."""
+    w_t: the (N, K) copy of w (see the module note).  Operator
+    mt::quant_dense: CUDA tensors launch kernel G; CPU tensors run the
+    plain version."""
     *lead, k = x.shape
     n = w_i8.shape[1]
     xm = x.reshape(-1, k).contiguous()
     f32 = torch.float32
     sw, b = w_scale.to(f32).contiguous(), bias.to(f32).contiguous()
-    if _build.on_cpu(xm, w_i8, sw, b):
-        return quant_dense_plain(xm, w_i8, sw, b, silu).reshape(*lead, n)
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"kernel G takes f32/bf16 rows; got {x.dtype}")
+    return torch.ops.mt.quant_dense(xm, w_i8, sw, b, bool(silu),
+                                    w_t).reshape(*lead, n)
+
+
+def quant_dense_op_plain(x, w_i8, w_scale, bias, silu, w_t):
+    """Operator mt::quant_dense on the CPU."""
+    return quant_dense_plain(x, w_i8, w_scale, bias, silu)
+
+
+def quant_dense_kernel(xm, w_i8, sw, b, silu, w_t) -> torch.Tensor:
+    """Kernel G on CUDA rows (M, K) (operator mt::quant_dense).  Counted
+    on quant_dense_fused."""
+    _build.require_cuda(xm, w_i8, sw, b)
+    if xm.dtype not in DTYPE_CODES:
+        raise ValueError(f"kernel G takes f32/bf16 rows; got {xm.dtype}")
     m = xm.shape[0]
-    dev = x.device
+    n = w_i8.shape[1]
+    f32 = torch.float32
+    dev = xm.device
     wt = transposed_i8(w_i8, w_t)
     np_, kp = wt.shape
     xm = pad_cols(xm, kp)
     sw, b = pad_cols(sw, np_), pad_cols(b, np_)
     xq = torch.empty(m, kp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
-    out = torch.empty(m, np_, dtype=x.dtype, device=dev)
+    out = torch.empty(m, np_, dtype=xm.dtype, device=dev)
     so = _build.lib("quant_mlp")
     fn = so.launch_quant_dense
     if fn.argtypes is None:
@@ -337,12 +381,12 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
-    rc = fn(xm.data_ptr(), DTYPE_CODES[x.dtype], m, kp, np_, wt.data_ptr(),
+    rc = fn(xm.data_ptr(), DTYPE_CODES[xm.dtype], m, kp, np_, wt.data_ptr(),
             sw.data_ptr(), b.data_ptr(), int(bool(silu)), xq.data_ptr(),
             sx.data_ptr(), out.data_ptr(), _build.stream_ptr())
     quant_dense_fused.launches += 1
     _build.check(so, rc, "quant_dense (kernel G)")
-    return out[:, :n].reshape(*lead, n)
+    return out[:, :n].contiguous()
 
 
 quant_dense_fused.launches = 0
