@@ -1,0 +1,7 @@
+"""As detector.device_ms.py, for the cells that report frames_per_s.vitb8."""
+from pathlib import Path
+
+from benchmark.harness import load_module
+
+read = load_module(Path(__file__).with_name("detector.device_ms.py"),
+                   "bench_metric_detector.device_ms").read

@@ -1,0 +1,8 @@
+"""Share (%) of the traced slice in which no device operation ran: the
+union of the operations' intervals, not their sum, over the slice's host
+time, from the device-only trace."""
+
+
+def read(rec):
+    tr = rec["device_trace"]
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s) if tr.busy_s else None

@@ -1,0 +1,9 @@
+"""Device ms a fused step of the kernels launched inside the ViT's
+forward (`bench.vit`, the overflow ladder's calls included), from the
+traced slice."""
+
+
+def read(rec):
+    steps = rec["trace"].span_count("bench.det")
+    us = rec["trace"].kernel_us("bench.vit")
+    return us / 1e3 / steps if steps and us else None
