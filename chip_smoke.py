@@ -1110,7 +1110,8 @@ def drive(torch, ops, runner, rng, batches: int, path: str, must,
             "kept_per_frame": float(np.mean([r["final_valid"].sum()
                                              for r in prod])),
             "overflow_dets": prof.get("overflow_dets", 0),
-            "overflow_ms": prof["overflow_ms"], "fetch_ms": prof["fetch_ms"],
+            "overflow_ms": prof["overflow_ms"], "wait_ms": prof["wait_ms"],
+            "fetch_ms": prof["fetch_ms"],
             "crowded_kept_per_frame": float(np.mean(
                 [r["final_valid"].sum() for r in flat[len(prod):]])),
             "crowded_overflow_dets": dense_prof["overflow_dets"],

@@ -193,4 +193,5 @@ def runner(rank, n, dev, tree_path, paths, budget):
     return {"meshed": got, "meshed_dev": got_dev, "plain": plain.run_paths(
         paths), "packed": meshed._fn(batch), "packed_plain": plain._fn(batch),
         "local_overflow": local_overflow, "overflow_ms": prof["overflow_ms"],
+        "overflow_dets": prof["overflow_dets"],
         "error": error}

@@ -333,7 +333,7 @@ def test_meshed_runner_equals_meshless(runner_files, n):
                 np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-3)
                 np.testing.assert_allclose(a["cls_scores"][v],
                                            b["cls_scores"][v], atol=1e-5)
-    assert out[0]["overflow_ms"] > 0.0
+    assert out[0]["overflow_dets"] > 0 and out[0]["overflow_ms"] > 0.0
 
 
 def test_dryrun_multichip_2():

@@ -140,6 +140,7 @@ def test_budget2_matches_budget8_and_jax(params, tmp_path):
     res2 = r2.run_paths(paths, profile=prof)
     res8 = r8.run_paths(paths)
     assert sum(int(r["final_valid"].sum()) for r in res2) > 2 * len(paths)
+    assert prof["overflow_dets"] > 0 and prof["ladder_chunks"] > 0
     assert prof["overflow_ms"] > 0.0
     for a, b in zip(res2, res8):
         _assert_recs_equal(a, b)
@@ -160,10 +161,30 @@ def test_run_device_batches_matches_run_paths(params, tmp_path):
     prof = {}
     res_dev = runner.run_device_batches([batch] * 6, profile=prof)
     assert len(res_dev) == 6
-    assert prof["overflow_dets"] > 0 and prof["overflow_ms"] > 0.0
+    assert prof["overflow_dets"] > 0 and prof["ladder_chunks"] > 0
+    assert prof["overflow_ms"] > 0.0
     for recs in res_dev:
         for a, b in zip(res_host, recs):
             _assert_recs_equal(a, b)
+
+
+@pytest.mark.parametrize("path", ["run_paths", "run_device_batches"])
+def test_within_budget_dispatches_no_ladder(params, tmp_path, path):
+    """Budget 8 holds every kept box of the dense scene: the ladder
+    dispatches nothing and its profile keys stay zero."""
+    paths = _write_frames(tmp_path, [(64, 64)] * 4)
+    runner = _runner(params, 8)
+    prof = {}
+    if path == "run_paths":
+        res = runner.run_paths(paths, profile=prof)
+    else:
+        batch = torch.from_numpy(np.stack([runner._decode(p)
+                                           for p in paths]))
+        res = runner.run_device_batches([batch] * 2, profile=prof)[0]
+    assert sum(int(r["final_valid"].sum()) for r in res) > 2 * len(paths)
+    assert prof["overflow_dets"] == 0 and prof["ladder_chunks"] == 0
+    assert prof["overflow_ms"] == 0.0
+    assert prof["wait_ms"] > 0.0 and prof["fetch_ms"] > 0.0
 
 
 def test_run_paths_mixed_sizes_bad_file_stream_and_flatten(params, tmp_path):

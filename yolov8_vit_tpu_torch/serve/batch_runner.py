@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from collections import defaultdict, deque
 from typing import Sequence
 
@@ -37,12 +36,26 @@ from yolov8_vit_tpu_torch.parallel import sharding
 from yolov8_vit_tpu_torch.parallel.mesh import axis_group, axis_size
 from yolov8_vit_tpu_torch.runtime import native
 from yolov8_vit_tpu_torch.serve import imageio
+from yolov8_vit_tpu_torch.utils.profiling import span
 from yolov8_vit_tpu_torch.weights import (init_tree, load_pipeline_tree,
                                           load_tree, read_engine)
 
 
 # fused steps in flight ahead of the drain in run_device_batches
 _DEPTH = 4
+# ladder chunks in flight before the oldest is patched
+_LADDER_WINDOW = 8
+
+
+def _profile_keys(profile: dict | None) -> None:
+    """Every key of the runner's `profile` dict, zero where nothing added
+    to it (no decode on the device path, no ladder chunk dispatched)."""
+    if profile is not None:
+        for k in ("decode_ms", "enqueue_ms", "wait_ms", "fetch_ms",
+                  "overflow_ms"):
+            profile.setdefault(k, 0.0)
+        for k in ("overflow_dets", "ladder_chunks"):
+            profile.setdefault(k, 0)
 
 
 class _HostCopy:
@@ -152,10 +165,10 @@ class BatchRunner:
         in-flight request state for `_finish`."""
         from concurrent.futures import ThreadPoolExecutor
 
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(min(8, max(len(paths), 1))) as pool:
+        _profile_keys(profile)
+        with span("runner.decode", profile, "decode_ms"), \
+                ThreadPoolExecutor(min(8, max(len(paths), 1))) as pool:
             imgs = list(pool.map(self._decode, paths))
-        t1 = time.perf_counter()
         buckets: dict[tuple[int, int], list[int]] = defaultdict(list)
         for i, img in enumerate(imgs):
             if img is not None:
@@ -164,57 +177,67 @@ class BatchRunner:
         for _hw, idxs in buckets.items():
             for start in range(0, len(idxs), self.max_batch):
                 chunk = idxs[start:start + self.max_batch]
-                batch = np.stack([imgs[i] for i in chunk])
-                if len(chunk) < self.max_batch:
-                    # pad the tail chunk to the full batch: one static
-                    # shape per resolution (padded rows dropped in _finish)
-                    pad = self.max_batch - len(chunk)
-                    batch = np.concatenate(
-                        [batch, np.zeros((pad, *batch.shape[1:]),
-                                         batch.dtype)])
-                dev_batch = torch.from_numpy(batch).to(self.device)
-                res = self._fn(dev_batch)
-                pending.append((chunk, dev_batch, _HostCopy([res])))
-        t2 = time.perf_counter()
-        if profile is not None:
-            profile["decode_ms"] = profile.get("decode_ms", 0.0) + \
-                (t1 - t0) * 1e3
-            profile["enqueue_ms"] = profile.get("enqueue_ms", 0.0) + \
-                (t2 - t1) * 1e3
+                with span("runner.enqueue", profile, "enqueue_ms"):
+                    batch = np.stack([imgs[i] for i in chunk])
+                    if len(chunk) < self.max_batch:
+                        # pad the tail chunk to the full batch: one static
+                        # shape per resolution (padded rows dropped in
+                        # _finish)
+                        pad = self.max_batch - len(chunk)
+                        batch = np.concatenate(
+                            [batch, np.zeros((pad, *batch.shape[1:]),
+                                             batch.dtype)])
+                    dev_batch = torch.from_numpy(batch).to(self.device)
+                    res = self._fn(dev_batch)
+                    pending.append((chunk, dev_batch, _HostCopy([res])))
         return {"n": len(paths), "pending": pending}
+
+    def _fetch(self, copy: _HostCopy, profile: dict | None) -> list[dict]:
+        """A step's packed result: the wait on its copy, then the unpack."""
+        with span("runner.wait", profile, "wait_ms"):
+            arr = copy.get()[0]
+        with span("runner.unpack", profile, "fetch_ms"):
+            return self._unpack(arr)
 
     def _finish(self, state: dict,
                 profile: dict | None = None) -> list[dict | None]:
         results: list[dict | None] = [None] * state["n"]
-        t2 = time.perf_counter()
-        t_over = 0.0
         for chunk, dev_batch, copy in state["pending"]:
-            recs = self._unpack(copy.get()[0])
-            to = time.perf_counter()
-            self._reclassify_overflow(recs[:len(chunk)], dev_batch)
-            t_over += time.perf_counter() - to
-            for idx, rec in zip(chunk, recs):
-                results[idx] = rec
-        t3 = time.perf_counter()
-        if profile is not None:
-            profile["fetch_ms"] = profile.get("fetch_ms", 0.0) + \
-                (t3 - t2 - t_over) * 1e3
-            profile["overflow_ms"] = profile.get("overflow_ms", 0.0) + \
-                t_over * 1e3
+            with span("runner.drain"):
+                recs = self._fetch(copy, profile)
+                window: deque = deque()
+                self._ladder_dispatch(recs[:len(chunk)], dev_batch, window,
+                                      profile)
+                self._ladder_flush(window, profile)
+                for idx, rec in zip(chunk, recs):
+                    results[idx] = rec
         return results
 
     def run_paths(self, paths: Sequence[str],
                   profile: dict | None = None) -> list[dict | None]:
         """Decode + run; one result dict per input path (None when the
         image failed to decode), in input order.  Every chunk is enqueued
-        before any result is fetched.  `profile`, when given, accumulates
-        decode_ms, enqueue_ms, fetch_ms and overflow_ms."""
+        before any result is fetched.
+
+        `profile`, when given, accumulates (each key the wall time of the
+        span named beside it, see utils/profiling.py `span`):
+          decode_ms      the request's decode (`runner.decode`);
+          enqueue_ms     each chunk's stack, upload, fused step and result
+                         copy, launched (`runner.enqueue`);
+          wait_ms        blocked on a chunk's result copy (`runner.wait`);
+          fetch_ms       unpacking a chunk's result (`runner.unpack`);
+          overflow_ms    the overflow ladder's dispatched chunks and their
+                         patches (`runner.ladder`, `runner.patch`): 0.0
+                         when no detection overflowed;
+          overflow_dets  detections the ladder re-classified;
+          ladder_chunks  ladder chunks dispatched."""
         return self._finish(self._enqueue(paths, profile), profile)
 
     def run_stream(self, requests, profile: dict | None = None):
         """Generator over a stream of requests (each a path list): request
         N+1 decodes and enqueues while request N's results are in flight.
-        Yields one result list per request, in order."""
+        Yields one result list per request, in order; `profile` as in
+        `run_paths`."""
         prev = None
         for paths in requests:
             state = self._enqueue(paths, profile)
@@ -232,43 +255,37 @@ class BatchRunner:
         (a CUDA event marks its completion), so transfers stream behind
         compute.  The bound matters for the overflow ladder: a ladder chunk
         enqueued at drain time runs behind every step enqueued so far.
-        Returns one ladder-patched rec list per input batch."""
+        Returns one ladder-patched rec list per input batch.
+
+        Spans (utils/profiling.py `span`): one `runner.enqueue` (the fused
+        step and its copy, launched) and one `runner.drain` a batch; inside
+        a drain `runner.wait` (blocked on the step's copy), `runner.unpack`,
+        a `runner.ladder` a ladder chunk, and in the last drain the
+        `runner.patch` of the chunks still in flight.  `profile`, when
+        given, accumulates enqueue_ms, wait_ms, fetch_ms (the unpack alone),
+        overflow_ms, overflow_dets and ladder_chunks, as `run_paths`
+        documents them (decode_ms stays 0.0)."""
+        _profile_keys(profile)
         pending: deque = deque()
         window: deque = deque()
         out = []
-        stats = {"fetch": 0.0, "ladder": 0.0, "over": 0}
 
-        def drain_one():
+        def drain_one(last: bool):
             dv, copy = pending.popleft()
-            t0 = time.perf_counter()
-            recs = self._unpack(copy.get()[0])
-            t1 = time.perf_counter()
-            for part, fetched in self._ladder_dispatch(recs, dv):
-                stats["over"] += len(part)
-                window.append((part, fetched))
-                if len(window) >= 8:
-                    self._ladder_patch(*window.popleft())
-            stats["fetch"] += t1 - t0
-            stats["ladder"] += time.perf_counter() - t1
+            with span("runner.drain"):
+                recs = self._fetch(copy, profile)
+                self._ladder_dispatch(recs, dv, window, profile)
+                if last:
+                    self._ladder_flush(window, profile)
             out.append(recs)
 
         for dv in dev_batches:
-            pending.append((dv, _HostCopy([self._fn(dv)])))
+            with span("runner.enqueue", profile, "enqueue_ms"):
+                pending.append((dv, _HostCopy([self._fn(dv)])))
             if len(pending) > _DEPTH:
-                drain_one()
+                drain_one(False)
         while pending:
-            drain_one()
-        t2 = time.perf_counter()
-        while window:
-            self._ladder_patch(*window.popleft())
-        stats["ladder"] += time.perf_counter() - t2
-        if profile is not None:
-            profile["fetch_ms"] = profile.get("fetch_ms", 0.0) + \
-                stats["fetch"] * 1e3
-            profile["overflow_ms"] = profile.get("overflow_ms", 0.0) + \
-                stats["ladder"] * 1e3
-            profile["overflow_dets"] = profile.get("overflow_dets", 0) + \
-                stats["over"]
+            drain_one(len(pending) == 1)
         return out
 
     # ------------------------------------------------------------------
@@ -295,22 +312,15 @@ class BatchRunner:
                 for k in np.nonzero(rec["final_valid"]
                                     & (rec["cls_labels"] < 0))[0]]
 
-    def _reclassify_overflow(self, recs: list, dev_batch) -> None:
-        """Classify the detections the classify budget dropped, patching
-        recs in place, with at most 8 ladder chunks in flight."""
-        window: deque = deque()
-        for part_dev in self._ladder_dispatch(recs, dev_batch):
-            window.append(part_dev)
-            if len(window) >= 8:
-                self._ladder_patch(*window.popleft())
-        while window:
-            self._ladder_patch(*window.popleft())
-
-    def _ladder_dispatch(self, recs: list, dev_batch):
-        """Yield (part, copy in flight) ladder dispatches for the overflow
-        detections of `recs`; `part` holds (rec, det index) pairs.  Two
-        chunk sizes: K = max_batch * budget slots for the common few-crop
-        overflow, 8K to bound the dispatches on dense scenes."""
+    def _ladder_dispatch(self, recs: list, dev_batch, window: deque,
+                         profile: dict | None) -> None:
+        """Classify the detections the classify budget dropped: dispatch
+        them to the ladder, appending (part, copy in flight) to `window`,
+        where `part` holds (rec, det index) pairs that `_ladder_patch`
+        fills in place.  Once `window` holds 8 chunks, a dispatch patches
+        the oldest (one `runner.ladder` span a chunk holds both).
+        Two chunk sizes: K = max_batch * budget slots for the common
+        few-crop overflow, 8K to bound the dispatches on dense scenes."""
         over = self._overflow(recs)
         h, w = int(dev_batch.shape[1]), int(dev_batch.shape[2])
         k_small = self.max_batch * self.pipeline.classify_budget
@@ -320,16 +330,30 @@ class BatchRunner:
             k_slots = k_large if len(over) - start > k_small else k_small
             part = over[start:start + k_slots]
             start += len(part)
-            slot_img = np.zeros((k_slots,), np.int32)
-            slot_boxes = np.zeros((k_slots, 4), np.int32)
-            for j, (r, k) in enumerate(part):
-                slot_img[j] = r
-                slot_boxes[j] = self._host_inflate(
-                    recs[r]["boxes"][k:k + 1], w, h)[0]
-            labels, scores = self._cls_fn(
-                dev_batch, torch.from_numpy(slot_img).to(self.device),
-                torch.from_numpy(slot_boxes).to(self.device))
-            yield [(recs[r], k) for r, k in part], _HostCopy([labels, scores])
+            with span("runner.ladder", profile, "overflow_ms"):
+                slot_img = np.zeros((k_slots,), np.int32)
+                slot_boxes = np.zeros((k_slots, 4), np.int32)
+                for j, (r, k) in enumerate(part):
+                    slot_img[j] = r
+                    slot_boxes[j] = self._host_inflate(
+                        recs[r]["boxes"][k:k + 1], w, h)[0]
+                labels, scores = self._cls_fn(
+                    dev_batch, torch.from_numpy(slot_img).to(self.device),
+                    torch.from_numpy(slot_boxes).to(self.device))
+                window.append(([(recs[r], k) for r, k in part],
+                               _HostCopy([labels, scores])))
+                if len(window) >= _LADDER_WINDOW:
+                    self._ladder_patch(*window.popleft())
+            if profile is not None:
+                profile["overflow_dets"] += len(part)
+                profile["ladder_chunks"] += 1
+
+    def _ladder_flush(self, window: deque, profile: dict | None) -> None:
+        """Patch every ladder chunk still in flight (`runner.patch`)."""
+        if window:
+            with span("runner.patch", profile, "overflow_ms"):
+                while window:
+                    self._ladder_patch(*window.popleft())
 
     @staticmethod
     def _ladder_patch(part, copy: _HostCopy) -> None:

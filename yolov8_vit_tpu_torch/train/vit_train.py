@@ -37,6 +37,7 @@ from yolov8_vit_tpu_torch.parallel.distributed import is_primary
 from yolov8_vit_tpu_torch.parallel.mesh import axis_group, axis_size
 from yolov8_vit_tpu_torch.train.losses import combined_loss
 from yolov8_vit_tpu_torch.train.schedule import cosine_anneal_schedule
+from yolov8_vit_tpu_torch.utils.profiling import span
 from yolov8_vit_tpu_torch.weights import _reset, load_tree, module_tree
 
 
@@ -62,18 +63,23 @@ def make_train_step(model: ViTClassifier,
     `model` in place.  Each parameter's `.grad` holds the step's gradient
     of the loss (weight decay is added out of place); `grad_sync`, when
     given, runs between the backward pass and the optimizer step (the
-    data-parallel gradient mean)."""
+    data-parallel gradient mean).  Spans (utils/profiling.py `span`):
+    `train.forward` (model and loss), `train.backward` (with `grad_sync`),
+    `train.optim`."""
 
     def step(imgs, onehot, lr):
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
-        logits = model(imgs)
-        loss = combined_loss(logits, onehot)
-        loss.backward()
-        if grad_sync is not None:
-            grad_sync()
-        optimizer.step()
+        with span("train.forward"):
+            logits = model(imgs)
+            loss = combined_loss(logits, onehot)
+        with span("train.backward"):
+            loss.backward()
+            if grad_sync is not None:
+                grad_sync()
+        with span("train.optim"):
+            optimizer.step()
         return loss.detach(), _correct(logits.detach(), onehot)
 
     return step
@@ -219,25 +225,35 @@ class ViTTrainer:
 
     def train_one_epoch(self, model, optimizer, loader: Iterable,
                         epoch0: int) -> tuple[float, float]:
-        """One epoch in place -> (mean loss, accuracy %)."""
+        """One epoch in place -> (mean loss, accuracy %).  Spans
+        (utils/profiling.py `span`): `train.data` around each fetch from
+        `loader` (the epoch's last finds it spent), `train.step` around
+        each batch's upload, step and loss / accuracy sums."""
         lr = cosine_anneal_schedule(epoch0, self.cfg.epoch, self.cfg.lr)
         split_step, rep_step = self._train_steps(model, optimizer)
         total = n_steps = 0
         loss_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
-        for imgs, onehot in loader:
-            batch = self._batch(imgs, onehot)
-            if self._split_rows(imgs.shape[0]):
-                loss, c = split_step(*sharding.shard_batch(self.mesh, batch),
-                                     lr)
-                loss, c = self._data_sum(loss, c)
-                loss = loss / self._data_axis()
-            else:
-                loss, c = rep_step(*batch, lr)
-            total += imgs.shape[0]
-            loss_sum += loss
-            correct += c
-            n_steps += 1
+        batches = iter(loader)
+        while True:
+            with span("train.data"):
+                item = next(batches, None)
+            if item is None:
+                break
+            imgs, onehot = item
+            with span("train.step"):
+                batch = self._batch(imgs, onehot)
+                if self._split_rows(imgs.shape[0]):
+                    loss, c = split_step(
+                        *sharding.shard_batch(self.mesh, batch), lr)
+                    loss, c = self._data_sum(loss, c)
+                    loss = loss / self._data_axis()
+                else:
+                    loss, c = rep_step(*batch, lr)
+                total += imgs.shape[0]
+                loss_sum += loss
+                correct += c
+                n_steps += 1
         acc = 100.0 * int(correct) / max(total, 1)
         return float(loss_sum) / max(n_steps, 1), acc
 

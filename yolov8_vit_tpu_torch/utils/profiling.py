@@ -1,8 +1,12 @@
 """Tracing and step timing (PyTorch port of the JAX package's
 `utils/profiling.py`):
 
+  * `span(name)`: a named range of the program (the runner's and the
+    classifier trainer's steps) on the profiler's clock while a profiler
+    runs, and nothing otherwise;
   * `trace(log_dir)`: a torch.profiler session (CPU and, where there is a
-    card, CUDA activity) written as a Chrome trace into `log_dir`;
+    card, CUDA activity) written as a Chrome trace into `log_dir`, the
+    spans beside the device's kernels and copies;
   * `StepTimer`: per-stage wall times with count / mean / p50 / p95;
   * `device_barrier(tree)`: wait for the CUDA devices of the tree's
     tensors and return the float sum of the tree.
@@ -16,6 +20,47 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+
+
+_NULL = contextlib.nullcontext()
+
+
+class _Timed:
+    """A span that also adds its elapsed ms to `acc[key]`."""
+
+    __slots__ = ("_rf", "_acc", "_key", "_t0")
+
+    def __init__(self, rf, acc: dict, key: str):
+        self._rf, self._acc, self._key = rf, acc, key
+
+    def __enter__(self):
+        if self._rf is not None:
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._acc[self._key] = self._acc.get(self._key, 0.0) + \
+            (time.perf_counter() - self._t0) * 1e3
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, acc: dict | None = None, key: str | None = None):
+    """Context manager over one step of a layer.  While a profiler runs it
+    is a `torch.profiler.record_function(name)` range, on the clock of the
+    device's kernels and copies in the same trace; otherwise it calls
+    nothing in torch.profiler (a shared null context), and under
+    torch.compile it does nothing.  With `acc`, the block's wall time in
+    ms is also added to `acc[key]` (the runner's `profile` dict)."""
+    if torch.compiler.is_compiling():
+        return _NULL
+    rf = torch.profiler.record_function(name) \
+        if torch.autograd._profiler_enabled() else None
+    if acc is not None:
+        return _Timed(rf, acc, key)
+    return _NULL if rf is None else rf
 
 
 @contextlib.contextmanager
