@@ -214,6 +214,7 @@ import ast
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -330,7 +331,8 @@ ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
                "quant_dense": ("quant_dense_fused", "public_ops"),
                "quant_mlp": ("quant_mlp_fused", "public_ops"),
                "nms_argmax": ("nms_single_label", "public_ops"),
-               "fused_b1b2": ("fused_b1b2", "public_ops")}
+               "fused_b1b2": ("fused_b1b2", "public_ops"),
+               "conv_silu": ("conv_silu", "vit_b16_w8a")}
 
 
 def _smi() -> str:
@@ -1140,7 +1142,7 @@ def b16_w8a_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
     init_s = time.perf_counter() - t0
     runner = BatchRunner(pipe, max_batch=BATCH)
     out = drive(torch, ops, runner, rng, batches, "vit_b16_w8a",
-                must=A_B + C_D, must_not=E_F)
+                must=A_B + C_D + ("conv_silu",), must_not=E_F)
     return dict(out, init_fit_s=init_s), runner, tree
 
 
@@ -1322,6 +1324,100 @@ def engine_phase(torch, ops, vit_b8_tree: dict, b16_runner, b16_tree: dict,
     return out
 
 
+def check_conv_block(torch, ops, smi: str) -> tuple[dict, dict]:
+    """Kernel K (mt::conv_silu): every distinct ConvBlock call of a bf16
+    YOLOv8-s forward at 640 x BATCH against the chain it replaced (its
+    plain version: cuDNN's conv in TF32 on bf16-valued f32 operands, bias
+    add, SiLU, cast), and of -n and -m at 4 frames, at tests/conv_cases.py's
+    bar; 54 launches a forward; the kernel's and the chain's time at
+    each YOLOv8-s call beside its bound (benchmark/counts/conv.py's count),
+    summed by shape class.  Returns (the kernels row, the report)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import conv_cases
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    from yolov8_vit_tpu_torch.ops import conv_block as cb
+    dev = torch.device("cuda")
+
+    def model(variant):
+        g = torch.Generator().manual_seed(3)
+        det = y.YOLOv8(y.YOLOV8_VARIANTS[variant], dtype=torch.bfloat16)
+        for m in det.modules():
+            if isinstance(m, y.Conv):
+                m.reset(g)
+        det.prepare()
+        return det.to(dev)
+
+    rep, checks = {"card": smi}, {}
+    for variant, batch in (("s", BATCH), ("n", 4), ("m", 4)):
+        det = model(variant)
+        x = torch.rand(batch, 640, 640, 3, device=dev).to(torch.bfloat16)
+        rows = conv_cases.check_model(det, x)
+        calls = sum(r["calls"] for r in rows.values())
+        bad = {k: r for k, r in rows.items() if r["beyond_bar"]
+               or r["differ_share"] > conv_cases.DIFFER_SHARE}
+        if calls != conv_cases.convblock_calls(det) or bad:
+            raise AssertionError(f"kernel K, YOLOv8-{variant}: {calls} "
+                                 f"calls; beyond the bar: {bad}")
+        checks[variant] = {
+            "calls": calls, "distinct": len(rows),
+            "max_ulps": max(r["max_ulps"] for r in rows.values()),
+            "max_differ_share": max(r["differ_share"]
+                                    for r in rows.values())}
+        if variant == "s":
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                det(x)
+            rep["launches_a_forward"] = ops.launch_counts()["conv_silu"]
+            if rep["launches_a_forward"] != 54:
+                raise AssertionError(f"kernel K: "
+                                     f"{rep['launches_a_forward']} launches "
+                                     f"a YOLOv8-s forward, not 54")
+            sigs = conv_cases.signatures(det, x)
+    rep["checks"] = checks
+    classes, per_call = {}, []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0,
+           "bytes_ms": 0.0}
+    for sig, n in sigs.items():
+        xs, ws = sig[0], sig[2]
+        x_, wk, bias, s, res, out = conv_cases.case(sig, dev, seed=1)
+        k_ms = _time_ms(lambda: cb.conv_silu(x_, wk, bias, s, res, out), 20)
+        c_ms = _time_ms(lambda: out.copy_(cb.conv_silu_plain(
+            x_, wk, bias, s, res)), 20)
+        os_ = tuple(out.shape)
+        flops = 2.0 * math.prod(os_) * ws[1] * ws[2] * ws[3]
+        nbytes = 2 * (math.prod(xs) + math.prod(os_) * (2 if res is not None
+                                                        else 1)
+                      + math.prod(ws)) + 4 * ws[0]
+        op_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bound, by = _bound_ms(nbytes, op_ms)
+        cls = "stem" if xs[-1] == 3 else (
+            "1x1" if ws[1] == 1 else f"3x3 stride {s}")
+        c = classes.setdefault(cls, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
+                                     "bound_ms": 0.0})
+        for d in (c, tot):
+            d["ms"] += n * k_ms
+            d["plain_ms"] += n * c_ms
+            d["bound_ms"] += n * bound
+        c["calls"] += n
+        tot["op_ms"] += n * op_ms
+        tot["bytes_ms"] += n * nbytes / PEAK_BYTES_S * 1e3
+        per_call.append({"sig": str(sig), "calls": n, "ms": round(k_ms, 4),
+                         "plain_ms": round(c_ms, 4), "bound_ms": round(
+                             bound, 4), "bound_by": by})
+    for c in classes.values():
+        c["roofline_pct"] = 100.0 * c["bound_ms"] / c["ms"]
+    rep["classes"] = classes
+    rep["per_call"] = per_call
+    row = {"name": "conv_silu", "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "bound_ms": tot["bound_ms"],
+           "bound_by": "bytes" if tot["bytes_ms"] >= tot["op_ms"]
+           else "operations", "library_ms": None,
+           "max_abs_err": None, "by_shape": classes,
+           "shape": "the 54 ConvBlocks of a YOLOv8-s forward, 640 x 640 x "
+                    f"{BATCH}, summed (plain: the chain it replaced)"}
+    return row, rep
+
+
 def detector_convs(torch, det, frames, ref_frames: int = 8,
                    cpu_frames: int = 2) -> dict:
     """Phase 9: the bf16 YOLOv8-s of phase 5 on its batch of 32 frames.
@@ -1336,6 +1432,7 @@ def detector_convs(torch, det, frames, ref_frames: int = 8,
     from yolov8_vit_tpu_torch.models.yolov8 import (YOLOv8, ConvBlock,
                                                     conv_f32)
     from yolov8_vit_tpu_torch.ops import blob, letterbox_fast
+    from yolov8_vit_tpu_torch.ops.conv_block import chain_weight
     from yolov8_vit_tpu_torch.weights import load_tree, module_tree
     bf16 = torch.bfloat16
     lb, _, _ = letterbox_fast(frames, (640, 640), dtype=bf16)
@@ -1344,11 +1441,12 @@ def detector_convs(torch, det, frames, ref_frames: int = 8,
 
     def on_block(name):
         def hook(mod, inp):
-            convs.append((name, inp[0], mod.w, mod.s))
+            convs.append((name, inp[0], chain_weight(mod.w), mod.s))
         return hook
 
     def on_head(mod, inp):
-        convs.extend((f"detect.entry{i}", f, getattr(mod, f"entry{i}_w"), 1)
+        convs.extend((f"detect.entry{i}", f,
+                      chain_weight(getattr(mod, f"entry{i}_w")), 1)
                      for i, f in enumerate(inp[0]))
 
     hooks = [det.detect.register_forward_pre_hook(on_head)]
@@ -4481,7 +4579,8 @@ def main() -> int:
           flush=True)
     ptxas = {}
     for lib_name, what in (("quant_mlp", "C, G, H"), ("attention", "D, E, F"),
-                           ("nms", "A, B, I"), ("fused_region", "J")):
+                           ("nms", "A, B, I"), ("fused_region", "J"),
+                           ("conv_silu", "K")):
         ptxas[lib_name] = _ptxas_summary(_build.build_log(lib_name))
         print(f"ptxas, {lib_name} library ({what}):\n  "
               + "\n  ".join(ptxas[lib_name]), flush=True)
@@ -4528,6 +4627,16 @@ def main() -> int:
     print(f"bf16 E, F (FLOAT_BF16_TOL {FLOAT_BF16_TOL}): "
           f"{json.dumps(bf16_stats)}")
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    k_row, conv_k = check_conv_block(torch, ops, smi)
+    rows.append(k_row)
+    print(f"kernel conv_silu: ms {k_row['ms']:.4f} plain_ms "
+          f"{k_row['plain_ms']:.4f} bound_ms {k_row['bound_ms']:.4f} "
+          f"({k_row['bound_by']}) by class "
+          f"{json.dumps(k_row['by_shape'])}", flush=True)
+    _report(f"kernel K against the chain ({time.perf_counter() - t0:.1f} s)",
+            {k: v for k, v in conv_k.items() if k != "per_call"})
 
     small = {q: small_input_check(torch, q) for q in ("w8a", "none")}
     print(f"small input card == CPU: {small}", flush=True)
@@ -4710,6 +4819,7 @@ def main() -> int:
                    "head_dims": head_dims,
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
+                   "conv_block": conv_k,
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
                    "checkpoints": ckpt, "host_decode_mesh": host,

@@ -15,10 +15,16 @@ wheel's libtorch), mirroring tests/test_pjrt_driver.py.
   package that calls a kernel operator (its metadata list them) is
   refused before the run with a message (the driver runs the kernels on
   the card only).
+- A CPU package whose graph calls kernel K (mt::conv_silu, the bf16
+  detector's ConvBlock, a mutating operator: AOTInductor keeps it as one
+  call writing its output buffer) lists it in its metadata and is
+  refused on the CPU likewise.
 - On a card (marked cuda, skipped here): a YOLOv8-n detect package
   (`export_stablehlo_detect`) through the driver, bit-equal to the
   Python load, its stage-1 NMS inputs within the f32 bars of the eager
-  f32 Engine's (boxes 1e-4, tests/test_engine.py's bar).
+  f32 Engine's (boxes 1e-4, tests/test_engine.py's bar); and a bf16
+  YOLOv8-n detector's package (its ConvBlocks through kernel K) through
+  the driver, bit-equal to the Python load.
 """
 import os
 import subprocess
@@ -29,7 +35,7 @@ import torch
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.models.yolov8 import conv_f32
-from yolov8_vit_tpu_torch.ops import library
+from yolov8_vit_tpu_torch.ops import conv_block, library
 from yolov8_vit_tpu_torch.ops.nms import efficient_nms_scan
 from yolov8_vit_tpu_torch.runtime.export import _write_package
 from yolov8_vit_tpu_torch.serve import imageio
@@ -167,6 +173,82 @@ def test_driver_refuses_kernel_operators_on_cpu(driver, tmp_path):
     assert out.returncode == 1
     assert (f"package {pkg} calls the kernel operators nms_argmax_ml, "
             f"which mt_infer runs on the card only") in out.stderr
+
+
+class _WithConvBlock(torch.nn.Module):
+    """A [0, 1] NHWC blob -> one bf16 ConvBlock through mt::conv_silu."""
+
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(0)
+        self.register_buffer("w", conv_block.kernel_layout(
+            torch.randn(16, 3, 3, 3, generator=g)))
+        self.register_buffer("b", torch.randn(16, generator=g))
+
+    def forward(self, x):
+        return {"features": conv_block.conv_silu(x.to(torch.bfloat16),
+                                                 self.w, self.b, 2)}
+
+
+def test_driver_refuses_the_conv_operator_on_cpu(driver, tmp_path):
+    x = torch.rand(1, 16, 16, 3)
+    pkg = _write_package(_WithConvBlock().eval(), ("features",), x,
+                         str(tmp_path / "conv"), "detect", "01")
+    runner = torch._inductor.aoti_load_package(pkg)
+    assert runner.get_metadata()["mt_ops"] == "conv_silu"
+    assert torch.equal(runner(x)[0], _WithConvBlock()(x)["features"])
+    out = _run(driver, "--package", pkg, "--device", "cpu")
+    assert out.returncode == 1
+    assert (f"package {pkg} calls the kernel operators conv_silu, which "
+            f"mt_infer runs on the card only") in out.stderr
+
+
+class _Bf16Detector(torch.nn.Module):
+    """A [0, 1] NHWC f32 blob -> a bf16 detector's head maps."""
+
+    def __init__(self, det):
+        super().__init__()
+        self.det = det
+
+    def forward(self, x):
+        outs = self.det(x.to(torch.bfloat16))
+        return {f"{k}{i}": t for i, (b, c) in enumerate(outs)
+                for k, t in (("box", b), ("cls", c))}
+
+
+@pytest.mark.cuda
+def test_driver_on_card_runs_the_bf16_detector(driver, tmp_path):
+    """A bf16 YOLOv8-n detector's package (54 ConvBlocks through kernel K)
+    through the driver: outputs bit-equal to the Python load of the same
+    package."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the driver's kernel operators "
+                    "run only on the card")
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    g = torch.Generator().manual_seed(2)
+    det = y.YOLOv8(y.YOLOV8_VARIANTS["n"], dtype=torch.bfloat16)
+    for m in det.modules():
+        if isinstance(m, y.Conv):
+            m.reset(g)
+    det.prepare()
+    graph = _Bf16Detector(det.to("cuda")).eval()
+    names = tuple(f"{k}{i}" for i in range(3) for k in ("box", "cls"))
+    pkg = _write_package(graph, names, torch.zeros(1, 64, 64, 3,
+                                                   device="cuda"),
+                         str(tmp_path / "bf16"), "detect", "01")
+    assert "conv_silu" in torch._inductor.aoti_load_package(
+        pkg).get_metadata()["mt_ops"].split(",")
+    prefix = str(tmp_path / "dump")
+    out = _run(driver, "--package", pkg, "--image", _bmp(tmp_path, 48, 64),
+               "--dump-prefix", prefix, timeout=600)
+    assert out.returncode == 0, out.stderr
+    x = torch.from_numpy(np.fromfile(prefix + "_input.bin", np.float32)
+                         .reshape(1, 64, 64, 3)).cuda()
+    py = torch._inductor.aoti_load_package(pkg)(x)
+    for i, w in enumerate(py):
+        np.testing.assert_array_equal(
+            np.fromfile(f"{prefix}_{i}.bin", np.uint8),
+            w.cpu().contiguous().view(torch.uint8).numpy().reshape(-1))
 
 
 @pytest.mark.cuda

@@ -337,3 +337,31 @@ def test_aot_flags_accepted(tmp_path, flag, monkeypatch):
         assert meta["mt_weights"] == "inside"
         assert meta["mt_ops"] == "conv_f32,nms_argmax_ml"
         assert rt._parse_aot_name("native.pt2") is None
+
+
+def test_bf16_detect_program_calls_the_conv_operator(tmp_path, monkeypatch):
+    """A bf16 detect engine's torch.export program (`attach_aot`, as the
+    CLI's --aot writes it) traced on the card's path (forced here on the
+    CPU, where kernel K's operator runs its plain version) holds one
+    mt::conv_silu node a ConvBlock; the Engine loads it and its outputs
+    are the eager engine's bit for bit."""
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    from yolov8_vit_tpu_torch.runtime.engine import attach_aot
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "d")
+    export.main(["detect", "--out", out] + DET_ARGS)
+    monkeypatch.setattr(y, "_kernel_runs",
+                        lambda t: t.dtype == torch.bfloat16)
+    [path] = attach_aot(out, [(2, 64, 64, 3)], dtype=torch.bfloat16,
+                        platform="cpu")
+    targets = [str(n.target) for n in torch.export.load(path).graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("mt.conv_silu.default") == 54
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    eager = Engine(out, device="cpu", dtype=torch.bfloat16, _load_aot=False)
+    prog = Engine(out, device="cpu", dtype=torch.bfloat16)
+    want, got = eager(x), prog(x)
+    assert eager.last_path == "eager" and prog.last_path == "aot"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

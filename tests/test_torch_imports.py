@@ -32,7 +32,8 @@ NO_COUNTERPART = {"letterbox_s2d", "enable_compilation_cache"}
 PORT_ONLY = {
     "ops": {"KERNEL_WRAPPERS", "reset_launch_counts", "launch_counts",
             "fused_attention_block_i8", "crop_to_patches_i8", "fused_b1b2",
-            "prepare_region", "region_b1b2_plain", "nms_single_label"},
+            "prepare_region", "region_b1b2_plain", "nms_single_label",
+            "conv_silu"},
 }
 # names the port binds otherwise: `ops.letterbox` stays the module (the
 # JAX package rebinds it to the function, ops.letterbox.letterbox here)

@@ -726,3 +726,86 @@ def test_detector_train_step_card_matches_cpu(dev):
         assert float((gg[n] - cg[n]).abs().max()) <= \
             1e-3 * float(cg[n].abs().max()), n
         assert float((gp[n] - cp[n]).abs().max()) <= 1e-6, n
+
+
+# ---- kernel K: the detector's ConvBlock (tests/conv_cases.py's bar) ----
+
+def _detector(variant, dtype=torch.bfloat16, seed=3):
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    g = _gen(seed)
+    det = y.YOLOv8(y.YOLOV8_VARIANTS[variant], dtype=dtype)
+    for m in det.modules():
+        if isinstance(m, y.Conv):
+            m.reset(g)
+    det.prepare()
+    return det
+
+
+@pytest.mark.parametrize("variant,batch", [("s", 32), ("n", 4), ("m", 4)])
+def test_kernel_k_matches_chain_at_every_convblock(dev, variant, batch):
+    """Every distinct ConvBlock call of a bf16 forward at 640 (channel
+    slices, residuals and all), kernel K against the chain on random
+    operands of the recorded shapes and strides: YOLOv8-s at batch 32 (the
+    benchmark's), -n and -m widths at batch 4."""
+    import conv_cases
+    det = _detector(variant).to(dev)
+    x = torch.rand(batch, 640, 640, 3, generator=_gen(4)).to(
+        dev, torch.bfloat16)
+    rows = conv_cases.check_model(det, x)
+    assert sum(r["calls"] for r in rows.values()) == \
+        conv_cases.convblock_calls(det)
+    bad = {k: r for k, r in rows.items()
+           if r["beyond_bar"] or r["differ_share"] > conv_cases.DIFFER_SHARE}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("shape", [
+    # (batch, h, w, cin, cout, k, stride): odd sizes, ragged K-blocks and
+    # out channels past a tile
+    (2, 13, 17, 24, 40, 3, 1), (1, 13, 17, 24, 40, 3, 2),
+    (3, 9, 20, 72, 136, 1, 1), (2, 21, 11, 3, 48, 3, 2),
+    (1, 7, 5, 3, 16, 3, 2), (2, 30, 34, 16, 200, 3, 1)])
+def test_kernel_k_odd_shapes_match_chain(dev, shape):
+    import conv_cases
+    b, h, w, cin, cout, k, s = shape
+    sig = ((b, h, w, cin), cin + (8 if cin % 8 == 0 else 0), (cout, k, k, cin),
+           s, None, cout)
+    if cin == 3:
+        sig = ((b, h, w, cin), 3, (cout, k, k, cin), s, None, cout)
+    x, wk, bias, s, res, out = conv_cases.case(sig, dev, seed=5)
+    ops.conv_silu(x, wk, bias, s, res, out)
+    torch.cuda.synchronize()
+    r = conv_cases.compare(x, wk, bias, s, res, out)
+    assert r["beyond_bar"] == 0 and r["differ_share"] <= \
+        conv_cases.DIFFER_SHARE, r
+
+
+def test_kernel_k_residual_and_slices_leave_the_rest(dev):
+    """A bottleneck's cv2 as C2f calls it: input, residual and output
+    channel slices of wider buffers; the output buffer's other channels
+    are not written."""
+    import conv_cases
+    sig = ((2, 40, 40, 32), 128, (32, 3, 3, 32), 1, 128, 128)
+    x, wk, bias, s, res, out = conv_cases.case(sig, dev, seed=6)
+    buf = out._base
+    buf.fill_(0.25)
+    before = buf.clone()
+    ops.conv_silu(x, wk, bias, s, res, out)
+    torch.cuda.synchronize()
+    assert conv_cases.compare(x, wk, bias, s, res, out)["beyond_bar"] == 0
+    keep = torch.ones(buf.shape[-1], dtype=torch.bool, device=dev)
+    keep[96:] = False
+    assert torch.equal(buf[..., keep], before[..., keep])
+
+
+def test_kernel_k_launches_54_a_bf16_forward_and_none_in_f32(dev):
+    det = _detector("s").to(dev)
+    x = torch.rand(2, 640, 640, 3, generator=_gen(7)).to(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        det(x.to(torch.bfloat16))
+    assert ops.launch_counts()["conv_silu"] == 54
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        _detector("s", torch.float32).to(dev)(x)
+    assert ops.launch_counts()["conv_silu"] == 0

@@ -112,6 +112,36 @@ def test_yolov8_bf16_matches_jax_bf16(jax_params, frames):
                                        atol=1e-4, rtol=0)
 
 
+def test_yolov8_bf16_conv_operator_path_exports(jax_params, frames,
+                                                monkeypatch):
+    """The card's path of the bf16 detector (each ConvBlock one call of
+    kernel K's operator mt::conv_silu, C2f's branches written into one
+    buffer), forced on the CPU, where the operator runs its plain version:
+    head maps equal to the chain's bit for bit; torch.export traces it
+    (the operator's fake implementation) to one mt::conv_silu node a
+    ConvBlock, and the exported program gives the same maps."""
+    from yolov8_vit_tpu_torch.models import yolov8 as y
+    det = YOLOv8(detect_spec(DetectConfig(**DET_KW)), dtype=torch.bfloat16)
+    load_tree(det, jax_params["det"]["params"])
+    tlb, _, _ = letterbox_fast(torch.from_numpy(frames), (64, 64),
+                               dtype=torch.bfloat16)
+    x = blob(tlb).to(torch.bfloat16)
+    with torch.no_grad():
+        want = det(x)
+        monkeypatch.setattr(y, "_kernel_runs",
+                            lambda t: t.dtype == torch.bfloat16)
+        got = det(x)
+        ep = torch.export.export(det, (x,))
+        traced = ep.module()(x)
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("mt.conv_silu.default") == 54
+    assert "mt.conv_f32.default" in targets      # the head's final convs
+    for maps in (got, traced):
+        for (gb, gc), (wb, wc) in zip(maps, want):
+            assert torch.equal(gb, wb) and torch.equal(gc, wc)
+
+
 def _patches(frames, seed=1):
     rng = np.random.default_rng(seed)
     k = 6

@@ -19,8 +19,8 @@ import torch
 
 from yolov8_vit_tpu_torch import ops
 from yolov8_vit_tpu_torch.models.yolov8 import conv_f32
-from yolov8_vit_tpu_torch.ops import attention, fused_region, library, nms, \
-    quant
+from yolov8_vit_tpu_torch.ops import attention, conv_block, fused_region, \
+    library, nms, quant
 
 OPS = list(library.SCHEMAS)
 
@@ -100,6 +100,15 @@ def op_args(name: str):
             memory_format=torch.channels_last)
         return (x, torch.randn(8, 4, 3, 3, generator=g), _vec(8, g), 2,
                 False)
+    if name == "conv_silu":
+        # a channel slice in, a residual, a channel slice of a wider
+        # buffer out
+        x = torch.randn(1, 6, 6, 24, generator=g).to(torch.bfloat16)[..., 8:]
+        w = conv_block.kernel_layout(torch.randn(16, 16, 3, 3, generator=g)
+                                     * .2)
+        res = torch.randn(1, 6, 6, 16, generator=g).to(torch.bfloat16)
+        out = torch.zeros(1, 6, 6, 32, dtype=torch.bfloat16)[..., 16:]
+        return x, w, _vec(16, g, -.1, .1), 1, res, out
     raise KeyError(name)
 
 
@@ -145,6 +154,9 @@ def _wrapper_case(name):
         return (lambda x: fused_region.fused_b1b2(x, params)), a[:1]
     if name == "conv_f32":
         return (lambda x, w, b: conv_f32(x, w, 2, b)), a[:3]
+    if name == "conv_silu":
+        return (lambda x, w, b, r: conv_block.conv_silu(x, w, b, 1, r)), \
+            a[:3] + a[4:5]
     raise KeyError(name)
 
 
@@ -182,7 +194,8 @@ LAUNCHERS = {"nms_argmax_ml": nms.nms_argmax_ml_kernel,
              "attn_block_i8": attention.attn_block_i8_kernel,
              "attn_block": attention.attn_block_kernel,
              "flash_attention": attention.flash_attention_kernel,
-             "fused_b1b2": fused_region.fused_b1b2_kernel}
+             "fused_b1b2": fused_region.fused_b1b2_kernel,
+             "conv_silu": conv_block.conv_silu_kernel}
 
 
 @pytest.mark.parametrize("name", sorted(LAUNCHERS))

@@ -40,6 +40,7 @@ SOURCES = {
     "quant_mlp": "quant_mlp.cu",         # kernels C, G and H
     "attention": "attention.cu",         # kernels D, E and F
     "fused_region": "fused_region.cu",   # kernel J
+    "conv_silu": "conv_silu.cu",         # kernel K (the detector's ConvBlock)
 }
 HEADERS = ("int8_common.cuh", "hopper.cuh", "sdpa.cuh",
            "gemm_float.cuh")
@@ -72,7 +73,8 @@ HOST_OPTIONAL = {
 DRIVER_SOURCES = ("driver/mt_infer.cc", "host/imgproc.cc")
 DRIVER_LIB_MACROS = {"nms": "MT_LIB_NMS", "quant_mlp": "MT_LIB_QUANT_MLP",
                      "attention": "MT_LIB_ATTENTION",
-                     "fused_region": "MT_LIB_FUSED_REGION"}
+                     "fused_region": "MT_LIB_FUSED_REGION",
+                     "conv_silu": "MT_LIB_CONV_SILU"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

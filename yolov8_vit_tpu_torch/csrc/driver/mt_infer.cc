@@ -72,6 +72,9 @@
 #ifndef MT_LIB_FUSED_REGION
 #define MT_LIB_FUSED_REGION ""
 #endif
+#ifndef MT_LIB_CONV_SILU
+#define MT_LIB_CONV_SILU ""
+#endif
 
 namespace {
 
@@ -85,7 +88,8 @@ void* kernel_lib(const std::string& name) {
       {"nms", MT_LIB_NMS},
       {"quant_mlp", MT_LIB_QUANT_MLP},
       {"attention", MT_LIB_ATTENTION},
-      {"fused_region", MT_LIB_FUSED_REGION}};
+      {"fused_region", MT_LIB_FUSED_REGION},
+      {"conv_silu", MT_LIB_CONV_SILU}};
   auto it = libs.find(name);
   if (it != libs.end()) return it->second;
   const std::string& path = paths.at(name);
@@ -481,6 +485,58 @@ Tensor fused_b1b2(const Tensor& x_in, const Tensor& w, const Tensor& bias,
   return out;
 }
 
+// (B, H, W, C) with channels adjacent and pixels one stride apart: a whole
+// NHWC tensor or a channel slice of one (ops/conv_block.py _pixel_dense)
+bool pixel_dense(const Tensor& t) {
+  int64_t ld = t.stride(2);
+  return t.stride(3) == 1 && (t.stride(1) == t.size(2) * ld || t.size(1) == 1)
+         && (t.stride(0) == t.size(1) * t.size(2) * ld || t.size(0) == 1);
+}
+
+void conv_silu(const Tensor& x_in, const Tensor& weight, const Tensor& bias,
+               int64_t stride, const OptTensor& residual_in,
+               const Tensor& out) {
+  require_cuda({&x_in, &weight, &bias, &out});
+  const char* what = "conv_silu (kernel K)";
+  int64_t b = x_in.size(0), h = x_in.size(1), w = x_in.size(2),
+          cin = x_in.size(3), cout = weight.size(0), k = weight.size(1);
+  int64_t p = k / 2, ho = (h + 2 * p - k) / stride + 1,
+          wo = (w + 2 * p - k) / stride + 1;
+  TORCH_CHECK(x_in.scalar_type() == at::kBFloat16 &&
+                  weight.scalar_type() == at::kBFloat16 &&
+                  bias.scalar_type() == at::kFloat &&
+                  out.scalar_type() == at::kBFloat16 &&
+                  out.sizes() == at::IntArrayRef({b, ho, wo, cout}) &&
+                  pixel_dense(out) &&
+                  weight.strides() ==
+                      at::IntArrayRef({1, k * cin * cout, cin * cout, cout}),
+              what, " takes bf16 x (B, H, W, cin), bf16 (cout, k, k, cin) "
+              "weights over HWIO memory, f32 bias and a bf16 NHWC out");
+  Tensor x = pixel_dense(x_in) ? x_in : x_in.contiguous();
+  Tensor res;
+  if (residual_in.has_value()) {
+    res = *residual_in;
+    require_cuda({&res});
+    TORCH_CHECK(res.sizes() == out.sizes() &&
+                    res.scalar_type() == at::kBFloat16,
+                what, " takes a bf16 residual of the output's shape");
+    if (!pixel_dense(res) || res.stride(2) % 8 ||
+        reinterpret_cast<uintptr_t>(res.data_ptr()) % 16)
+      res = res.contiguous();
+  }
+  using Fn = int (*)(const void*, int, int, int, int, long long, const void*,
+                     int, int, int, const float*, const void*, long long,
+                     void*, long long, void*);
+  int rc = entry<Fn>("conv_silu", "launch_conv_silu")(
+      x.data_ptr(), int(b), int(h), int(w), int(cin), (long long)x.stride(2),
+      weight.data_ptr(), int(k), int(stride), int(cout),
+      bias.contiguous().data_ptr<float>(),
+      res.defined() ? res.data_ptr() : nullptr,
+      res.defined() ? (long long)res.stride(2) : 0LL, out.data_ptr(),
+      (long long)out.stride(2), stream());
+  check("conv_silu", rc, what);
+}
+
 Tensor conv_f32(const Tensor& x, const Tensor& weight, const OptTensor& bias,
                 int64_t stride, bool allow_tf32) {
   auto& ctx = at::globalContext();
@@ -513,6 +569,7 @@ TORCH_LIBRARY(mt, m) { MT_DEFINE_OPS(m) }
   m.impl("quant_mlp", quant_mlp);                 \
   m.impl("nms_argmax", nms_argmax);               \
   m.impl("fused_b1b2", fused_b1b2);               \
+  m.impl("conv_silu", conv_silu);                 \
   m.impl("conv_f32", conv_f32);
 
 // the kernel operators are registered for the CPU too, where they refuse

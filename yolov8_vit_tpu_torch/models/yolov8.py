@@ -11,6 +11,13 @@ Module and buffer names follow the flax parameter tree
 `weights.load_tree` relies on.  Conv kernels are stored OIHW here and
 HWIO in the tree.
 
+With bf16 activations on the card, each ConvBlock is one launch of
+kernel K (`ops.conv_block`, operator mt::conv_silu) on weights laid out
+once in its bf16 layout, and C2f writes its branches into one buffer in
+place of its concat.  f32 activations, the training form and CPU tensors
+run the chain the kernel replaced (`_conv_silu`: an f32 conv of bf16
+operands, + bias, SiLU, one cast), with the concat.
+
 `YOLOv8.train_form()` is the model the detector's trainer updates (the
 JAX trainer builds `YOLOv8(fused=True)` too and trains conv + bias): f32,
 every tree leaf an nn.Parameter read by the forward itself.
@@ -28,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolov8_vit_tpu_torch.ops.conv_block import (chain_weight, conv_silu,
+                                                 kernel_layout)
 from yolov8_vit_tpu_torch.ops.library import TF32_LOCK as _TF32_LOCK
 from yolov8_vit_tpu_torch.ops.library import cudnn_tf32 as _cudnn_tf32
 from yolov8_vit_tpu_torch.weights import leaves_to_parameters
@@ -141,6 +150,14 @@ def _rounded_f32(kernel: torch.Tensor, dtype) -> torch.Tensor:
     return kernel.to(dtype).to(torch.float32)
 
 
+def _derived_kernel(kernel: torch.Tensor, dtype) -> torch.Tensor:
+    """A ConvBlock's derived kernel: for bf16 activations kernel K's bf16
+    layout (`kernel_layout`), else the kernel rounded to `dtype` as f32."""
+    if dtype == torch.bfloat16:
+        return kernel_layout(kernel)
+    return _rounded_f32(kernel, dtype)
+
+
 def _conv_silu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                stride: int) -> torch.Tensor:
     """The JAX ConvBlock: conv of x's-dtype operands (w: the kernel
@@ -149,6 +166,27 @@ def _conv_silu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     f32 = torch.float32
     y = conv_f32(x.to(f32), w, stride, operands_in_bf16=x.dtype != f32)
     return F.silu(y + bias.to(f32)[:, None, None]).to(x.dtype)
+
+
+def _kernel_runs(x: torch.Tensor) -> bool:
+    """Whether kernel K runs a bf16 ConvBlock on x: bf16 on the card."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
+def _block(x, w, bias, stride, out=None, residual=None):
+    """One ConvBlock on x (an NCHW view of NHWC memory).  w is
+    `_derived_kernel`'s (or the training form's f32 kernel): kernel K's
+    bf16 layout launches mt::conv_silu where the kernel runs, which adds
+    `residual` as a bf16 add and writes into `out` where given (NCHW views
+    too; C2f passes them only where the kernel runs); anything else runs
+    the chain."""
+    if w.dtype == torch.bfloat16:
+        if _kernel_runs(x):
+            nhwc = (lambda t: None if t is None else t.permute(0, 2, 3, 1))
+            y = conv_silu(nhwc(x), w, bias, stride, nhwc(residual), nhwc(out))
+            return y.permute(0, 3, 1, 2)
+        w = chain_weight(w)
+    return _conv_silu(x, w, bias, stride)
 
 
 class ConvBlock(nn.Module):
@@ -160,12 +198,16 @@ class ConvBlock(nn.Module):
         self.conv = Conv(cin, out, k)
 
     def derive(self, dtype) -> None:
-        self.register_buffer("w", _rounded_f32(self.conv.kernel, dtype),
+        self.register_buffer("w", _derived_kernel(self.conv.kernel, dtype),
                              persistent=False)
 
-    def forward(self, x):
+    def kernel_runs(self, x) -> bool:
+        return not self.live and self.w.dtype == torch.bfloat16 \
+            and _kernel_runs(x)
+
+    def forward(self, x, out=None, residual=None):
         w = self.conv.kernel if self.live else self.w
-        return _conv_silu(x, w, self.conv.bias, self.s)
+        return _block(x, w, self.conv.bias, self.s, out, residual)
 
 
 class Bottleneck(nn.Module):
@@ -175,7 +217,12 @@ class Bottleneck(nn.Module):
         self.cv1 = ConvBlock(c, c, 3)
         self.cv2 = ConvBlock(c, c, 3)
 
-    def forward(self, x):
+    def forward(self, x, out=None):
+        """out: where kernel K writes the result (C2f's buffer), the
+        shortcut added in cv2's epilogue."""
+        if out is not None:
+            return self.cv2(self.cv1(x), out,
+                            x if self.shortcut else None)
         y = self.cv2(self.cv1(x))
         return x + y if self.shortcut else y
 
@@ -194,8 +241,19 @@ class C2f(nn.Module):
         self.cv2 = ConvBlock((2 + n) * c, out, 1)
 
     def forward(self, x):
+        c = self.c
+        if self.cv1.kernel_runs(x):
+            # cv1 and each bottleneck write their channels of one buffer,
+            # which cv2 reads whole: the concat without a copy
+            b, _, h, w = x.shape
+            buf = x.new_empty((b, h, w, (2 + self.n) * c)).permute(0, 3, 1, 2)
+            self.cv1(x, buf[:, :2 * c])
+            for i in range(self.n):
+                getattr(self, f"m{i}")(buf[:, (1 + i) * c:(2 + i) * c],
+                                       buf[:, (2 + i) * c:(3 + i) * c])
+            return self.cv2(buf)
         y = self.cv1(x)
-        parts = [y[:, :self.c], y[:, self.c:]]
+        parts = [y[:, :c], y[:, c:]]
         for i in range(self.n):
             parts.append(getattr(self, f"m{i}")(parts[-1]))
         return self.cv2(torch.cat(parts, dim=1))
@@ -244,13 +302,13 @@ class DetectHead(nn.Module):
 
     def derive(self, dtype) -> None:
         """entry{i}_w / entry{i}_b: level i's two branch-entry convs as one
-        (kernel rounded to dtype, held as f32)."""
+        (`_derived_kernel`'s layout of the concatenated kernels)."""
         for i in range(self.levels):
             b0 = getattr(self, f"box{i}_0").conv
             c0 = getattr(self, f"cls{i}_0").conv
             self.register_buffer(
                 f"entry{i}_w",
-                _rounded_f32(torch.cat([b0.kernel, c0.kernel]), dtype),
+                _derived_kernel(torch.cat([b0.kernel, c0.kernel]), dtype),
                 persistent=False)
             self.register_buffer(f"entry{i}_b", torch.cat([b0.bias, c0.bias]),
                                  persistent=False)
@@ -280,7 +338,7 @@ class DetectHead(nn.Module):
     def forward(self, feats):
         outs = []
         for i, f in enumerate(feats):
-            y = _conv_silu(f, *self._entry(i), 1)
+            y = _block(f, *self._entry(i), 1)
             b = getattr(self, f"box{i}_1")(y[:, :self.c2])
             c = getattr(self, f"cls{i}_1")(y[:, self.c2:])
             b = self._out_conv(b, getattr(self, f"box{i}_2"))

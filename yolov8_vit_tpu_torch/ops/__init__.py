@@ -5,6 +5,7 @@ from yolov8_vit_tpu_torch.ops.attention import (  # noqa: F401
 from yolov8_vit_tpu_torch.ops.boxes import (  # noqa: F401
     box_area, box_iou, inflate_boxes, unletterbox_boxes,
 )
+from yolov8_vit_tpu_torch.ops.conv_block import conv_silu  # noqa: F401
 from yolov8_vit_tpu_torch.ops.crop import (  # noqa: F401
     crop_and_resize_nearest, crop_to_patches_i8,
 )
@@ -35,13 +36,13 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 import yolov8_vit_tpu_torch.ops.library  # noqa: F401,E402
 
 # the wrappers that launch a CUDA kernel, each with its `launches` count
-# (kernels A-F, then G-J; A, B and I are three forms of one ordered-scan
+# (kernels A-F, then G-K; A, B and I are three forms of one ordered-scan
 # kernel, csrc/nms.cu `greedy_nms_kernel`; I is
 # efficient_nms_scan(multi_label=False), counted on nms_single_label)
 KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
                    fused_attention_block_i8, fused_attention_block,
                    flash_attention, quant_dense_fused, quant_mlp_fused,
-                   nms_single_label, fused_b1b2)
+                   nms_single_label, fused_b1b2, conv_silu)
 
 
 def reset_launch_counts() -> None:

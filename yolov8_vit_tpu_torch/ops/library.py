@@ -16,6 +16,7 @@ and the eager wrappers reach it through the dispatcher:
     quant_mlp         H       quant.quant_mlp_plain       quant.quant_mlp_kernel
     nms_argmax        I       nms.nms_argmax_plain        nms.nms_argmax_kernel
     fused_b1b2        J       fused_region.region_b1b2_plain  ..._kernel
+    conv_silu         K       conv_block.conv_silu_op_plain  ..._kernel
 
 plus `conv_f32`, cuDNN's convolution with its TF32 switch as an argument
 (models/yolov8.py `conv_f32` calls it while a graph is traced): a traced
@@ -75,6 +76,8 @@ SCHEMAS = {
                   "float score_threshold, int max_output, int window, "
                   "int chunk) -> (Tensor, Tensor, Tensor, Tensor)",
     "fused_b1b2": "(Tensor x, Tensor w, Tensor bias, int c2) -> Tensor",
+    "conv_silu": "(Tensor x, Tensor weight, Tensor bias, int stride, "
+                 "Tensor? residual, Tensor(a!) out) -> ()",
     "conv_f32": "(Tensor x, Tensor weight, Tensor? bias, int stride, "
                 "bool allow_tf32) -> Tensor",
 }
@@ -155,7 +158,8 @@ def _late(module, name: str):
 
 
 def _register_kernels() -> None:
-    from yolov8_vit_tpu_torch.ops import attention, fused_region, nms, quant
+    from yolov8_vit_tpu_torch.ops import (attention, conv_block,
+                                          fused_region, nms, quant)
 
     def nms_fake(boxes, scores, iou, score, max_output, window, chunk):
         b = boxes.shape[0]
@@ -195,7 +199,9 @@ def _register_kernels() -> None:
              "fused_b1b2_kernel",
              lambda x, w, bias, c2: x.new_empty(
                  (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, c2),
-                 dtype=torch.bfloat16))):
+                 dtype=torch.bfloat16)),
+            ("conv_silu", conv_block, "conv_silu_op_plain",
+             "conv_silu_kernel", lambda *a: None)):
         _register(name, flash_plain if cpu is None else _late(module, cpu),
                   _late(module, cuda), fake)
 
