@@ -32,6 +32,12 @@ Phases (any failure exits non-zero):
      print, on a line of their own and labelled as not measured, the times
      of A-J before their redesign (J's five launches as `kernel_cost.py
      region` traced them) and the SDPA core's exponential floor;
+     kernel K (`check_conv_block`) at every ConvBlock call of a bf16
+     YOLOv8-s forward against the chain it replaced, timed beside its
+     bound; mt::window_attn (`check_window_attn`) at SwinV2-B/256's six
+     block shapes, 64 crops, bf16, within WINDOW_BF16_TOL of its plain
+     version, timed beside its bound, its plain version and torch's SDPA
+     on the same windows (the `kernel window_attn` row);
   4. small-input checks: the whole pipeline on the card against the same
      pipeline on the CPU (plain versions), f32, integer outputs equal, with
      a w8a ViT (kernels C, D) and a float one (kernel E);
@@ -45,6 +51,10 @@ Phases (any failure exits non-zero):
      engine dirs (YOLOv8-s + the default ViTSpec(): ViT-B/8, 785 tokens,
      float weights, fused attention; bf16, batch 32), seed-0 weights with
      the fitted head, driven as phase 5;
+     then YOLOv8-s + SwinV2-B/256 (window 16), bf16, seed-0 weights with
+     the fitted head, driven the same way (`swin_slice`): A, B, K and
+     mt::window_attn launched, one window_attn launch for each of the 24
+     blocks of every classifier call, none of C-F;
   7. make_runner on engine dirs written by the port's `save_engine`:
      phase 6's detector with a ViT-B/8 classify engine of each int8 mode
      (w8a: kernels C and D at 785 tokens; w8: C and E; dynamic, stored
@@ -332,7 +342,8 @@ ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
                "quant_mlp": ("quant_mlp_fused", "public_ops"),
                "nms_argmax": ("nms_single_label", "public_ops"),
                "fused_b1b2": ("fused_b1b2", "public_ops"),
-               "conv_silu": ("conv_silu", "vit_b16_w8a")}
+               "conv_silu": ("conv_silu", "vit_b16_w8a"),
+               "window_attn": ("window_attention", "swin_v2b")}
 
 
 def _smi() -> str:
@@ -1079,16 +1090,22 @@ def drive(torch, ops, runner, rng, batches: int, path: str, must,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ops.reset_launch_counts()
-    prof: dict = {}
-    t0 = time.perf_counter()
-    recs = runner.run_device_batches(pools, profile=prof)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    dense_prof: dict = {}
-    recs += runner.run_device_batches([crowded], profile=dense_prof)
-    torch.cuda.synchronize()
-    launches = _path_launches(ops, path, must, must_not)
+    forwards = []          # the classifier's calls, fused steps and ladder
+    hook = runner.pipeline.vit.register_forward_pre_hook(
+        lambda _m, inp: forwards.append(inp[0].shape[0]))
+    try:
+        ops.reset_launch_counts()
+        prof: dict = {}
+        t0 = time.perf_counter()
+        recs = runner.run_device_batches(pools, profile=prof)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        dense_prof: dict = {}
+        recs += runner.run_device_batches([crowded], profile=dense_prof)
+        torch.cuda.synchronize()
+        launches = _path_launches(ops, path, must, must_not)
+    finally:
+        hook.remove()
 
     step_ms = _time_ms(lambda: runner._fn(pools[0]), 5)
     flat = [r for rs in recs for r in rs]
@@ -1118,6 +1135,8 @@ def drive(torch, ops, runner, rng, batches: int, path: str, must,
                 [r["final_valid"].sum() for r in flat[len(prod):]])),
             "crowded_overflow_dets": dense_prof["overflow_dets"],
             "crowded_overflow_ms": dense_prof["overflow_ms"],
+            "cls_forwards": len(forwards), "cls_crops": sum(forwards),
+            "cls_windows": prof["cls_windows"] + dense_prof["cls_windows"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "frames": pools[0]}
 
@@ -1168,6 +1187,45 @@ def b8_float_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
                 must_not=C_D + ("flash_attention",))
     return dict(out, init_fit_s=init_s, tokens=pipe.vit_spec.tokens), \
         runner, tree
+
+
+def swin_slice(torch, ops, batches: int) -> dict:
+    """Phase 6, after the ViT-B/8 slice: YOLOv8-s + SwinV2-B/256 (window
+    16), bf16, budget 2, batch 32, seed-0 weights with the fitted head,
+    driven as phase 5: A, B, K and mt::window_attn launched, one
+    window_attn launch for each of the 24 blocks of every classifier call
+    (fused steps and ladder chunks), none of C-F."""
+    import numpy as np
+    from yolov8_vit_tpu_torch.config import DetectConfig
+    from yolov8_vit_tpu_torch.models.swin import SwinV2Spec
+    from yolov8_vit_tpu_torch.models.two_stage import TwoStagePipeline
+    from yolov8_vit_tpu_torch.serve.batch_runner import BatchRunner
+    from yolov8_vit_tpu_torch.weights import init_tree, load_pipeline_tree
+    spec = SwinV2Spec()
+    pipe = TwoStagePipeline(det_cfg=DetectConfig(variant="s"), vit_spec=spec,
+                            classify_budget=BUDGET, dtype=torch.bfloat16,
+                            device="cuda")
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    tree = init_tree(pipe, 0)
+    load_pipeline_tree(pipe, tree)
+    _fit_head(pipe, tree, rng)
+    init_s = time.perf_counter() - t0
+    runner = BatchRunner(pipe, max_batch=BATCH)
+    out = drive(torch, ops, runner, rng, batches, "swin_v2b",
+                must=A_B + ("conv_silu", "window_attention"),
+                must_not=C_D + E_F)
+    blocks = sum(spec.depths)
+    if out["launches"]["window_attention"] != blocks * out["cls_forwards"] \
+            or out["cls_windows"] != spec.windows_per_crop() \
+            * out["cls_crops"]:
+        raise AssertionError(
+            f"swin_v2b: {out['launches']['window_attention']} window_attn "
+            f"launches and {out['cls_windows']} windows counted for "
+            f"{out['cls_forwards']} classifier calls of {out['cls_crops']} "
+            f"crops ({blocks} blocks, {spec.windows_per_crop()} windows a "
+            f"crop)")
+    return dict(out, init_fit_s=init_s)
 
 
 def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
@@ -1416,6 +1474,152 @@ def check_conv_block(torch, ops, smi: str) -> tuple[dict, dict]:
            "shape": "the 54 ConvBlocks of a YOLOv8-s forward, 640 x 640 x "
                     f"{BATCH}, summed (plain: the chain it replaced)"}
     return row, rep
+
+
+# SwinV2-B/256's blocks by shape (grid, C, heads, window, shift) and their
+# number a forward: each stage's unshifted block, and the shifted one where
+# the stage has it (stages 3 and 4 fill their grid with one window)
+WINDOW_STAGES = [((64, 128, 4, 16, 0), 1), ((64, 128, 4, 16, 8), 1),
+                 ((32, 256, 8, 16, 0), 1), ((32, 256, 8, 16, 8), 1),
+                 ((16, 512, 16, 16, 0), 18), ((8, 1024, 32, 8, 0), 2)]
+# mt::window_attn against its plain version, bf16 in and out (the GPU
+# test's bar, tests/test_torch_kernels_gpu.py): 2^-7 + 2^-7 |output| a
+# value and a mean error at most 2^-9 of the mean |output|.  The kernel
+# rounds the unnormalised probabilities to bf16 for its P.V product (one
+# ulp of P, 2^-9 relative, moves an output by up to 2^-9 of the largest
+# |v|) and the output once more (2^-8 relative), where the plain version
+# keeps P in f32.  Both round q / |q| and k / |k| to bf16, but from f32
+# norms summed in another order: where the two norms differ in their last
+# bit, an element can round to its other bf16 neighbour, which moves a
+# row's logits by up to the head's logit scale x 2^-8 |q_i k_i|.  At
+# scales of 25-100 that moves a few outputs past the bar (64 crops, scales
+# 5-86: 0-22 of 4.2-33.5 M outputs a stage shape, by up to 0.031; none at
+# scale 10): at most `flip_share` of the outputs may lie beyond it.  Such
+# roundings put each version as far from the same function without them
+# (the plain version in f32): the kernel's largest and mean error against
+# it at most `f32_ratio` x the plain version's (measured 1.00 and
+# 1.01-1.03).  A fault in the mask, the bias or the scale moves whole rows
+# or windows and fails the mean and the share.
+WINDOW_BF16_TOL = {"atol": 2.0 ** -7, "rtol": 2.0 ** -7,
+                   "mean_rel": 2.0 ** -9, "flip_share": 1e-5,
+                   "f32_ratio": 1.1}
+
+
+def _window_close(torch, name, got, ref, f32_ref, stats: dict) -> float:
+    """max |got - ref|, held to WINDOW_BF16_TOL; the share beyond the
+    elementwise bar and the error ratios against f32 go into `stats`."""
+    tol = WINDOW_BF16_TOL
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    beyond = int((err > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+    mean_rel = float(err.mean() / ref.abs().mean())
+    eg, er = (got - f32_ref).abs(), (ref - f32_ref).abs()
+    ratio = {"max": float(eg.max() / er.max()),
+             "mean": float(eg.mean() / er.mean())}
+    stats[name] = {"beyond_bar": beyond, "outputs": err.numel(),
+                   "max_abs_err": float(err.max()), "mean_rel": mean_rel,
+                   "f32_ratio": ratio}
+    if not bool(torch.isfinite(got).all()) \
+            or beyond > tol["flip_share"] * err.numel() \
+            or mean_rel > tol["mean_rel"] \
+            or max(ratio.values()) > tol["f32_ratio"]:
+        raise AssertionError(f"kernel {name} != plain: {stats[name]}, "
+                             f"bar {tol}")
+    return float(err.max())
+
+
+def check_window_attn(torch, ops, smi: str,
+                      crops: int = BATCH * BUDGET) -> tuple[dict, dict]:
+    """mt::window_attn at each of SwinV2-B/256's block shapes (WINDOW_STAGES)
+    on `crops` crops, random bias tables and logit scales 5 to 100, held
+    against its plain version within WINDOW_BF16_TOL (a shifted block also
+    off the same block unshifted beyond that bar: the roll and the mask
+    act); the kernel, its plain version and torch's SDPA on the same
+    windows (q and k normalised, the scale folded into q, bias plus mask as
+    attn_mask; the roll and partition made outside the timing) timed
+    (CUDA events) beside the bound (benchmark/counts/window_attn.py's
+    count) and summed over a forward's 24 blocks.  Returns (the kernels
+    row, the report)."""
+    import torch.nn.functional as F
+    from yolov8_vit_tpu_torch.ops.attention import (relative_index,
+                                                    shift_mask,
+                                                    window_attention_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    shapes, stats = [], {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "op_ms": 0.0, "bytes_ms": 0.0}
+    for (g, c, heads, ws, shift), blocks in WINDOW_STAGES:
+        qkv = torch.randn(crops, g, g, 3 * c, generator=gen).to(
+            torch.bfloat16).to(dev)
+        table = (16 * torch.sigmoid(torch.randn(
+            heads, (2 * ws - 1) ** 2, generator=gen))).to(dev)
+        scale = torch.exp(torch.rand(heads, generator=gen) * math.log(20)
+                          + math.log(5)).clamp(max=100.0).to(dev)
+        name = f"window_attn {crops}x{g}x{g}x{c} heads {heads} shift {shift}"
+
+        def kernel():
+            return ops.window_attention(qkv, table, scale, window=ws,
+                                        shift=shift, heads=heads)
+
+        def plain(s=shift):
+            return window_attention_plain(qkv, table, scale, ws, s, heads)
+
+        ref = plain()
+        f32_ref = window_attention_plain(qkv.float(), table, scale, ws,
+                                         shift, heads)
+        err = _window_close(torch, name, kernel(), ref, f32_ref, stats)
+        del f32_ref
+        if shift:
+            bar = WINDOW_BF16_TOL["atol"] \
+                + WINDOW_BF16_TOL["rtol"] * ref.float().abs()
+            if not bool(((plain(0).float() - ref.float()).abs() > bar)
+                        .any()):
+                raise AssertionError(f"{name}: no output moved by the shift")
+        del ref
+        n, hd, rows = ws * ws, c // heads, crops * g * g
+        x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+        nw = (g // ws) ** 2
+        x = x.reshape(crops, g // ws, ws, g // ws, ws, 3, heads, hd) \
+            .permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, crops * nw, heads,
+                                                     n, hd)
+        q = (F.normalize(x[0].float(), dim=-1)
+             * scale[:, None, None]).to(torch.bfloat16)
+        k = F.normalize(x[1].float(), dim=-1).to(torch.bfloat16)
+        v = x[2].contiguous()
+        mask = table[:, relative_index(ws).to(dev)][None]
+        if shift:
+            mask = (mask[None] + shift_mask(g, g, ws, shift).to(dev)[
+                None, :, None]).reshape(-1, heads, n, n) \
+                .repeat(crops, 1, 1, 1)
+        mask = mask.to(torch.bfloat16)
+        op_ms = 4.0 * rows * n * c / PEAK_BF16_FLOPS * 1e3
+        nbytes = 2 * rows * 4 * c + 4 * (table.numel() + heads)
+        bound, by = _bound_ms(nbytes, op_ms)
+        r = {"shape": [crops, g, g, c, heads, ws, shift], "blocks": blocks,
+             "ms": _time_ms(kernel, 20), "plain_ms": _time_ms(plain, 3),
+             "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=mask, scale=1.0), 20),
+             "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        r["roofline_pct"] = 100.0 * bound / r["ms"]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[key] += blocks * r[key]
+        tot["op_ms"] += blocks * op_ms
+        tot["bytes_ms"] += blocks * nbytes / PEAK_BYTES_S * 1e3
+        shapes.append(r)
+        del qkv, x, q, k, v, mask
+        torch.cuda.empty_cache()
+    row = {"name": "window_attn", "ms": tot["ms"],
+           "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": "bytes" if tot["bytes_ms"] >= tot["op_ms"]
+           else "operations", "library_ms": tot["library_ms"],
+           "max_abs_err": max(r["max_abs_err"] for r in shapes),
+           "by_shape": shapes,
+           "shape": f"the 24 blocks of a SwinV2-B/256 forward, {crops} "
+                    f"crops, summed (library: torch SDPA on the windows)"}
+    return row, {"card": smi, "crops": crops, "shapes": shapes,
+                 "stats": stats,
+                 "roofline_pct": 100.0 * tot["bound_ms"] / tot["ms"]}
 
 
 def detector_convs(torch, det, frames, ref_frames: int = 8,
@@ -4638,6 +4842,18 @@ def main() -> int:
     _report(f"kernel K against the chain ({time.perf_counter() - t0:.1f} s)",
             {k: v for k, v in conv_k.items() if k != "per_call"})
 
+    t0 = time.perf_counter()
+    w_row, win = check_window_attn(torch, ops, smi)
+    rows.append(w_row)
+    print(f"kernel window_attn: ms {w_row['ms']:.4f} plain_ms "
+          f"{w_row['plain_ms']:.4f} library_ms {w_row['library_ms']:.4f} "
+          f"bound_ms {w_row['bound_ms']:.4f} ({w_row['bound_by']}) "
+          f"max_abs_err {w_row['max_abs_err']} by shape "
+          f"{json.dumps(w_row['by_shape'])}", flush=True)
+    _report(f"mt::window_attn against its plain version "
+            f"({time.perf_counter() - t0:.1f} s)",
+            {k: v for k, v in win.items() if k != "shapes"})
+
     small = {q: small_input_check(torch, q) for q in ("w8a", "none")}
     print(f"small input card == CPU: {small}", flush=True)
 
@@ -4661,6 +4877,11 @@ def main() -> int:
         torch, ops, BATCHES)
     _report(f"ViT-B/8 float slice ({time.perf_counter() - t0:.1f} s)",
             paths["vit_b8_float"])
+    t0 = time.perf_counter()
+    paths["swin_v2b"] = swin_slice(torch, ops, BATCHES)
+    paths["swin_v2b"].pop("frames")
+    _report(f"SwinV2-B slice ({time.perf_counter() - t0:.1f} s)",
+            paths["swin_v2b"])
     frames = paths["vit_b8_float"]["frames"]
     t0 = time.perf_counter()
     runs, b8_w8a_runner = b8_engine_runs(torch, ops, b8_tree["det"],
@@ -4819,7 +5040,7 @@ def main() -> int:
                    "head_dims": head_dims,
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
-                   "conv_block": conv_k,
+                   "conv_block": conv_k, "window_attn": win,
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
                    "checkpoints": ckpt, "host_decode_mesh": host,

@@ -6,6 +6,7 @@ compared in one call.  From the repository root:
     python3 kernel_cost.py region [--tree OTHER_TREE]
     python3 kernel_cost.py steps [--tree OTHER_TREE]
     python3 kernel_cost.py serve [--tree OTHER_TREE]
+    python3 kernel_cost.py window [--tree OTHER_TREE]
 
 Both build chip_smoke.py phase 5's pipeline (YOLOv8-s at 640 x 640 and
 ViT-B/16 w8a, bf16, seed-0 weights with the head fitted to cover scenes)
@@ -53,6 +54,12 @@ engines saved from phase 5's tree) answering `POST /` of the 32 BMP URLs
 on 127.0.0.1, three requests on the fused route and two on the host
 route, each after a warm request.  Each tree decodes as its runner does
 (a tree without runtime/native.py through serve/imageio.py).
+
+`window`: mt::window_attn (SwinV2's window attention) alone, as
+chip_smoke.py's `check_window_attn` checks and times it: SwinV2-B/256's
+block shapes for 64 crops, bf16, against the plain version; the kernel,
+its plain version and torch's SDPA on the same windows beside each
+shape's bound, and the sums over one forward's 24 blocks.
 
 A tree from before `utils/profiling.py` is timed with this tree's copy of
 that module (chip_smoke.py's `_time_ms` and `profile_parts` call its
@@ -358,6 +365,15 @@ def region(args) -> dict:
     return out
 
 
+def window(args) -> dict:
+    from yolov8_vit_tpu_torch import ops
+    row, rep = cs.check_window_attn(torch, ops, "")
+    return {"window_attn": rep["shapes"],
+            "forward_64_crops": {k: row[k] for k in ("ms", "plain_ms",
+                                                     "library_ms",
+                                                     "bound_ms")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="kernels", required=True)
@@ -369,7 +385,8 @@ def main() -> int:
     p_steps = sub.add_parser("steps", help="the serving steps of phases 5-7")
     p_serve = sub.add_parser("serve", help="phase 5's step, decode and "
                              "POST / from files")
-    for p in (p_nms, p_region, p_steps, p_serve):
+    p_window = sub.add_parser("window", help="SwinV2's window attention")
+    for p in (p_nms, p_region, p_steps, p_serve, p_window):
         p.add_argument("--tree", metavar="DIR",
                        help="the tree whose package is timed")
     args = ap.parse_args()
@@ -381,7 +398,7 @@ def main() -> int:
     import yolov8_vit_tpu_torch as pkg
     _profiling_shim()
     run = {"nms": nms, "region": region, "steps": steps,
-           "serve": serve}[args.kernels]
+           "serve": serve, "window": window}[args.kernels]
     res = {"package": os.path.dirname(pkg.__file__), **run(args)}
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

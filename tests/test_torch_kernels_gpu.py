@@ -1,5 +1,6 @@
-"""PyTorch port, the CUDA kernels A-J against their plain versions on the
-card, at small shapes and at ViT-B/8's 785 tokens.  Marked `cuda`: they skip where no CUDA device is
+"""PyTorch port, the CUDA kernels A-K and mt::window_attn against their
+plain versions on the card, at small shapes, at ViT-B/8's 785 tokens and
+at SwinV2-B/256's stage shapes.  Marked `cuda`: they skip where no CUDA device is
 present (a CUDA kernel has no interpret mode).  On the GPU machine, which
 has no jax for tests/conftest.py, run them with
 `python3 -m pytest tests/test_torch_kernels_gpu.py -q --noconftest`.
@@ -809,3 +810,105 @@ def test_kernel_k_launches_54_a_bf16_forward_and_none_in_f32(dev):
     with torch.no_grad():
         _detector("s", torch.float32).to(dev)(x)
     assert ops.launch_counts()["conv_silu"] == 0
+
+
+# SwinV2-B/256's stage shapes (crops, grid, C, heads, window, shift): each
+# stage's unshifted block, and the shifted one where the stage has it
+_WIN_SHAPES = [(4, 64, 128, 4, 16, 0), (4, 64, 128, 4, 16, 8),
+               (4, 32, 256, 8, 16, 0), (4, 32, 256, 8, 16, 8),
+               (4, 16, 512, 16, 16, 0), (4, 8, 1024, 32, 8, 0)]
+
+
+@pytest.mark.parametrize("shape", _WIN_SHAPES)
+def test_window_attn_matches_plain_at_swinv2_b_stages(dev, shape):
+    """mt::window_attn against its plain version, bf16 in and out, with
+    random bias tables and logit scales 5 to 100.  Bar 2^-7 + 2^-7
+    |output| a value, and a mean error at most 2^-9 of the mean |output|:
+    both round the normalised q and k to bf16 alike, but the kernel rounds
+    the unnormalised probabilities to bf16 for its P.V product (one bf16
+    ulp of P, 2^-9 relative, moves an output by up to 2^-9 of the largest
+    |v|) and the output once more (one ulp, 2^-8 relative); the plain
+    version keeps P in f32.  A shifted block also differs from the same
+    block unshifted by more than the bar (the roll and the mask act)."""
+    import math
+    from yolov8_vit_tpu_torch.ops.attention import window_attention_plain
+    b, g, c, heads, ws, shift = shape
+    gen = _gen(11)
+    qkv = torch.randn(b, g, g, 3 * c, generator=gen).to(torch.bfloat16)
+    table = 16 * torch.sigmoid(torch.randn(heads, (2 * ws - 1) ** 2,
+                                           generator=gen))
+    scale = torch.exp(torch.rand(heads, generator=gen) * math.log(20)
+                      + math.log(5)).clamp(max=100.0)
+    qkv, table, scale = qkv.to(dev), table.to(dev), scale.to(dev)
+    ops.reset_launch_counts()
+    got = ops.window_attention(qkv, table, scale, window=ws, shift=shift,
+                               heads=heads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["window_attention"] == 1
+    ref = window_attention_plain(qkv, table, scale, ws, shift, heads)
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    bar = 2 ** -7 + 2 ** -7 * ref.abs()
+    assert bool(((got - ref).abs() <= bar).all()), \
+        float((got - ref).abs().max())
+    mean_rel = float((got - ref).abs().mean() / ref.abs().mean())
+    assert mean_rel <= 2 ** -9, mean_rel
+    if shift:
+        unshifted = window_attention_plain(qkv, table, scale, ws, 0,
+                                           heads).float()
+        assert bool(((got - unshifted).abs() > bar).any())
+
+
+def test_window_attn_in_every_block_of_swinv2_b(dev):
+    """The bf16 SwinV2-B/256 on the card: one mt::window_attn launch a
+    block (24), finite logits; in f32 none (the plain path)."""
+    from yolov8_vit_tpu_torch.models.swin import SwinV2Classifier
+    from yolov8_vit_tpu_torch.weights import _reset
+    model = SwinV2Classifier()
+    _reset(model, _gen(12))
+    crops = torch.randint(-128, 128, (2, 4096, 4, 12), dtype=torch.int8,
+                          generator=_gen(13)).to(dev)
+    for dtype, launches in ((torch.bfloat16, 24), (torch.float32, 0)):
+        model.dtype = dtype
+        model.to(dev).prepare()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = model(crops)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["window_attention"] == launches
+        assert torch.isfinite(out.float()).all()
+
+
+def test_swinv2_b_replays_its_forward_as_a_graph(dev):
+    """On the card the bf16 classifier's forward is one CUDA graph a crop
+    shape: the shape's first call runs the forward as it is and captures
+    it, later calls replay it over their own crops with the same logits as
+    the forward run as it is; each call counts its 24 window launches, the
+    capture none; a reload drops the graphs; f32 (the plain attention)
+    captures none."""
+    from yolov8_vit_tpu_torch.models.swin import SwinV2Classifier
+    from yolov8_vit_tpu_torch.weights import _reset
+    model = SwinV2Classifier(dtype=torch.bfloat16)
+    _reset(model, _gen(14))
+    model.to(dev).prepare()
+    a, b = (torch.randint(-128, 128, (4, 4096, 4, 12), dtype=torch.int8,
+                          generator=_gen(s)).to(dev) for s in (15, 16))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        first = model(a)
+        again = model(a)
+        other = model(b)
+        plain = model._forward(b)
+    torch.cuda.synchronize()
+    assert len(model._graphs) == 1
+    assert ops.launch_counts()["window_attention"] == 4 * 24
+    assert torch.equal(first, again)
+    assert torch.equal(other, plain)
+    assert not torch.equal(first, other)
+    model.prepare()
+    assert not model._graphs
+    model.dtype = torch.float32
+    model.prepare()
+    with torch.no_grad():
+        model(a)
+    assert not model._graphs

@@ -10,6 +10,8 @@
   the exported program gives the wrapper's eager result bit for bit.
 - Every kernel launcher (an operator's CUDA implementation) refuses CPU
   tensors: on the CPU only the plain versions run.
+- mt::window_attn (SwinV2's window attention) is held the same way, on a
+  shifted block's qkv.
 - The registered schemas are ops/library.py's SCHEMAS, their one source
   (the native driver's are held against them in test_torch_driver.py).
 """
@@ -109,6 +111,11 @@ def op_args(name: str):
         res = torch.randn(1, 6, 6, 16, generator=g).to(torch.bfloat16)
         out = torch.zeros(1, 6, 6, 32, dtype=torch.bfloat16)[..., 16:]
         return x, w, _vec(16, g, -.1, .1), 1, res, out
+    if name == "window_attn":
+        # a 2 x 2 grid of 4 x 4 windows, shifted by 2, two heads of 32
+        return (torch.randn(2, 8, 8, 192, generator=g),
+                torch.rand(2, 49, generator=g) * 16,
+                _vec(2, g, 5.0, 20.0), 4, 2, 2)
     raise KeyError(name)
 
 
@@ -157,6 +164,9 @@ def _wrapper_case(name):
     if name == "conv_silu":
         return (lambda x, w, b, r: conv_block.conv_silu(x, w, b, 1, r)), \
             a[:3] + a[4:5]
+    if name == "window_attn":
+        return (lambda qkv, t, s: attention.window_attention(
+            qkv, t, s, window=4, shift=2, heads=2)), a[:3]
     raise KeyError(name)
 
 
@@ -195,7 +205,8 @@ LAUNCHERS = {"nms_argmax_ml": nms.nms_argmax_ml_kernel,
              "attn_block": attention.attn_block_kernel,
              "flash_attention": attention.flash_attention_kernel,
              "fused_b1b2": fused_region.fused_b1b2_kernel,
-             "conv_silu": conv_block.conv_silu_kernel}
+             "conv_silu": conv_block.conv_silu_kernel,
+             "window_attn": attention.window_attn_kernel}
 
 
 @pytest.mark.parametrize("name", sorted(LAUNCHERS))

@@ -41,6 +41,7 @@ SOURCES = {
     "attention": "attention.cu",         # kernels D, E and F
     "fused_region": "fused_region.cu",   # kernel J
     "conv_silu": "conv_silu.cu",         # kernel K (the detector's ConvBlock)
+    "window_attn": "window_attn.cu",     # SwinV2's window attention
 }
 HEADERS = ("int8_common.cuh", "hopper.cuh", "sdpa.cuh",
            "gemm_float.cuh")

@@ -9,7 +9,9 @@
     -> integer box round + (side//10)//2 inflation      [ops.boxes]
     -> batch compaction to B * budget crop slots
     -> int8 crops in ViT patch layout (gather)          [ops.crop]
-    -> ViT (kernels C-F by quant mode) -> argmax        [models.vit]
+    -> classifier -> argmax: the ViT (kernels C-F by quant mode,
+       models.vit) or SwinV2 (mt::window_attn, models.swin), whichever
+       the spec names; either sits at `self.vit`
 
 Shapes are static per input size, and nothing on the CUDA path waits for
 the device: the whole forward enqueues on the current stream.
@@ -21,6 +23,7 @@ from torch import nn
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.config import DetectConfig
+from yolov8_vit_tpu_torch.models.swin import SwinV2Classifier, SwinV2Spec
 from yolov8_vit_tpu_torch.models.vit import VIT_B8_224, ViTClassifier, ViTSpec
 from yolov8_vit_tpu_torch.models.yolov8 import YOLOv8, detect_spec
 from yolov8_vit_tpu_torch.ops import (area_sorted_nms, blob,
@@ -35,7 +38,8 @@ class TwoStagePipeline(nn.Module):
     (`weights.load_tree`); the pipeline lives on `device`."""
 
     def __init__(self, det_cfg: DetectConfig = DetectConfig(),
-                 vit_spec: ViTSpec = VIT_B8_224, num_classes: int = 5,
+                 vit_spec: ViTSpec | SwinV2Spec = VIT_B8_224,
+                 num_classes: int = 5,
                  classify_budget: int = 4, dtype=torch.float32,
                  det_overrides: tuple = (), device="cuda"):
         super().__init__()
@@ -47,7 +51,9 @@ class TwoStagePipeline(nn.Module):
         self.dtype = dtype
         self.det_overrides = det_overrides
         self.det = YOLOv8(detect_spec(det_cfg, det_overrides), dtype=dtype)
-        self.vit = ViTClassifier(vit_spec, num_classes, dtype=dtype)
+        cls = SwinV2Classifier if isinstance(vit_spec, SwinV2Spec) \
+            else ViTClassifier
+        self.vit = cls(vit_spec, num_classes, dtype=dtype)
         self.to(self.device)
 
     def classify(self, images: torch.Tensor, slot_img: torch.Tensor,

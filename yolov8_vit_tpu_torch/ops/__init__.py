@@ -1,6 +1,7 @@
 """Device ops of the two-stage pipeline (PyTorch port)."""
 from yolov8_vit_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention, fused_attention_block, fused_attention_block_i8,
+    window_attention,
 )
 from yolov8_vit_tpu_torch.ops.boxes import (  # noqa: F401
     box_area, box_iou, inflate_boxes, unletterbox_boxes,
@@ -36,13 +37,13 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 import yolov8_vit_tpu_torch.ops.library  # noqa: F401,E402
 
 # the wrappers that launch a CUDA kernel, each with its `launches` count
-# (kernels A-F, then G-K; A, B and I are three forms of one ordered-scan
-# kernel, csrc/nms.cu `greedy_nms_kernel`; I is
-# efficient_nms_scan(multi_label=False), counted on nms_single_label)
+# (kernels A-F, then G-K, then SwinV2's window attention; A, B and I are
+# three forms of one ordered-scan kernel, csrc/nms.cu `greedy_nms_kernel`;
+# I is efficient_nms_scan(multi_label=False), counted on nms_single_label)
 KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
                    fused_attention_block_i8, fused_attention_block,
                    flash_attention, quant_dense_fused, quant_mlp_fused,
-                   nms_single_label, fused_b1b2, conv_silu)
+                   nms_single_label, fused_b1b2, conv_silu, window_attention)
 
 
 def reset_launch_counts() -> None:

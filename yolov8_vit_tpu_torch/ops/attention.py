@@ -1,11 +1,15 @@
-"""The ViT's attention: kernels D, E and F.
+"""The classifiers' attention: kernels D, E and F, and mt::window_attn.
 
   D  fused_attention_block_i8   x + proj_i8(SDPA(qkv_i8(LN1(x))))
      replaces yolov8_vit_tpu/ops/attention.py `_attn_block_kernel_i8`;
   E  fused_attention_block      x + proj(SDPA(qkv(LN1(x)))), float weights,
      replaces `_attn_block_kernel`;
   F  flash_attention            softmax(q k^T / sqrt(d)) v on (B, T, H, D),
-     replaces `_attn_kernel`.
+     replaces `_attn_kernel`;
+     window_attention           SwinV2's shifted-window cosine attention
+     with its relative-position bias (models/swin.py), from the qkv GEMM's
+     output to proj's input (csrc/window_attn.cu; no TPU kernel: the JAX
+     package has no Swin).
 
 On the card each is a chain around the key-tiled SDPA core of
 csrc/sdpa.cuh (csrc/attention.cu; the source notes give the bounds on the
@@ -21,8 +25,10 @@ probabilities rounded to v's dtype, output in q's dtype.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from yolov8_vit_tpu_torch import _build
 from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
@@ -389,3 +395,127 @@ def flash_attention_kernel(q, k, v) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+# ---- mt::window_attn ----------------------------------------------------
+def relative_coords(ws: int) -> torch.Tensor:
+    """((2 ws - 1)^2, 2) f32: SwinV2's log-spaced relative coordinates,
+    (dy, dx) / (ws - 1) * 8 mapped by sign(t) log2(|t| + 1) / log2(8), the
+    input of the continuous position bias MLP.  (ws - 1 is taken as 1 at
+    ws = 1, where the published code divides by zero.)"""
+    r = torch.arange(-(ws - 1), ws, dtype=torch.float32)
+    t = torch.stack(torch.meshgrid(r, r, indexing="ij"), -1)
+    t = t / max(ws - 1, 1) * 8
+    t = torch.sign(t) * torch.log2(t.abs() + 1.0) / math.log2(8)
+    return t.reshape(-1, 2)
+
+
+def relative_index(ws: int) -> torch.Tensor:
+    """(N, N) int64, N = ws^2: V1's relative position index of query i and
+    key j of a window, (ri - rj + ws - 1)(2 ws - 1) + ci - cj + ws - 1."""
+    r = torch.arange(ws * ws)
+    dr = r[:, None] // ws - r[None] // ws + ws - 1
+    dc = r[:, None] % ws - r[None] % ws + ws - 1
+    return dr * (2 * ws - 1) + dc
+
+
+def shift_mask(h: int, w: int, ws: int, shift: int) -> torch.Tensor:
+    """(nW, N, N) f32: -100 between tokens of different regions of the
+    (-shift)-rolled grid, 0 within one, per window in row-major order
+    (timm's construction)."""
+    img = torch.zeros(h, w)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for vs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img[hs, vs] = cnt
+            cnt += 1
+    win = img.reshape(h // ws, ws, w // ws, ws).permute(0, 2, 1, 3) \
+        .reshape(-1, ws * ws)
+    diff = win[:, None, :] - win[:, :, None]
+    return torch.where(diff != 0, -100.0, 0.0)
+
+
+def window_attention_plain(qkv: torch.Tensor, table: torch.Tensor,
+                           scale: torch.Tensor, window: int, shift: int,
+                           heads: int) -> torch.Tensor:
+    """Plain version of mt::window_attn: qkv (B, H, W, 3C) -> (B, H, W, C)
+    in qkv's dtype.  The grid rolled by -shift and cut into windows;
+    q and k normalised in f32 and rounded to the dtype (the kernel's
+    products read them so), scores in f32 times `scale` (heads,), plus
+    `table` (heads, (2 window - 1)^2) at V1's index, plus timm's shift mask;
+    softmax and P.V in f32; the partition and the roll reversed."""
+    b, h, w, c3 = qkv.shape
+    c, ws, dt = c3 // 3, window, qkv.dtype
+    hd, n = c // heads, window * window
+    nw = (h // ws) * (w // ws)
+    x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    x = x.reshape(b, h // ws, ws, w // ws, ws, 3, heads, hd) \
+        .permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, n, hd)
+    q, k, v = x.float().unbind(0)
+    q = F.normalize(q, dim=-1).to(dt).float()
+    k = F.normalize(k, dim=-1).to(dt).float()
+    s = q @ k.transpose(-1, -2) * scale.float()[:, None, None]
+    s = s + table.float()[:, relative_index(ws).to(qkv.device)]
+    if shift:
+        mask = shift_mask(h, w, ws, shift).to(qkv.device)
+        s = (s.view(b, nw, heads, n, n) + mask[None, :, None]).view(
+            b * nw, heads, n, n)
+    o = (torch.softmax(s, dim=-1) @ v).to(dt)
+    o = o.reshape(b, h // ws, w // ws, heads, ws, ws, hd) \
+        .permute(0, 1, 4, 2, 5, 3, 6).reshape(b, h, w, c)
+    return torch.roll(o, (shift, shift), (1, 2)) if shift else o
+
+
+def window_attention(qkv: torch.Tensor, table: torch.Tensor,
+                     scale: torch.Tensor, *, window: int, shift: int,
+                     heads: int) -> torch.Tensor:
+    """SwinV2's window attention over the qkv GEMM's output (B, H, W, 3C)
+    (q | k | v, heads of C / heads) -> (B, H, W, C), the input of proj:
+    `window_attention_plain`'s function.  table (heads, (2 window - 1)^2)
+    is 16 sigmoid(cpb(relative_coords)), scale (heads,) exp(min(logit
+    scale, ln 100)), both f32.  CUDA tensors launch the kernel (bf16, head
+    dim 32, window 8 or 16); CPU tensors run the plain version."""
+    return torch.ops.mt.window_attn(qkv.contiguous(),
+                                    table.float().contiguous(),
+                                    scale.float().contiguous(), window, shift,
+                                    heads)
+
+
+def window_attn_op_plain(qkv, table, scale, window, shift, heads):
+    """Operator mt::window_attn on the CPU."""
+    return window_attention_plain(qkv, table, scale, window, shift,
+                                  heads).contiguous()
+
+
+def window_attn_kernel(qkv, table, scale, window, shift,
+                       heads) -> torch.Tensor:
+    """csrc/window_attn.cu on CUDA tensors (operator mt::window_attn).
+    Counted on window_attention."""
+    _build.require_cuda(qkv, table, scale)
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    if qkv.dtype != torch.bfloat16 or c != 32 * heads \
+            or window not in (8, 16) or h % window or w % window \
+            or not 0 <= shift < window \
+            or tuple(table.shape) != (heads, (2 * window - 1) ** 2) \
+            or tuple(scale.shape) != (heads,):
+        raise ValueError(
+            f"mt::window_attn takes bf16 qkv (B, H, W, 96 x heads), head dim "
+            f"32, window 8 or 16 dividing H and W, 0 <= shift < window; got "
+            f"{qkv.dtype} {tuple(qkv.shape)}, heads {heads}, window "
+            f"{window}, shift {shift}, table {tuple(table.shape)}")
+    out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
+    so = _build.lib("window_attn")
+    fn = so.launch_window_attn
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(qkv.data_ptr(), table.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), b, h, w, c, heads, window, shift,
+            _build.stream_ptr())
+    window_attention.launches += 1
+    _build.check(so, rc, "window_attn")
+    return out
+
+
+window_attention.launches = 0

@@ -1,6 +1,7 @@
 """The hand-written kernels as `torch.library` operators (namespace `mt`).
 
-Every kernel entry point A-J is one operator, so that `torch.export` and
+Every kernel entry point A-K, and SwinV2's window attention, is one
+operator, so that `torch.export` and
 AOTInductor see it as one opaque node of the graph (runtime/engine.py's
 `attach_aot` and `attach_compiled`, runtime/export.py's native packages)
 and the eager wrappers reach it through the dispatcher:
@@ -17,6 +18,7 @@ and the eager wrappers reach it through the dispatcher:
     nms_argmax        I       nms.nms_argmax_plain        nms.nms_argmax_kernel
     fused_b1b2        J       fused_region.region_b1b2_plain  ..._kernel
     conv_silu         K       conv_block.conv_silu_op_plain  ..._kernel
+    window_attn       Swin    attention.window_attn_op_plain  ..._kernel
 
 plus `conv_f32`, cuDNN's convolution with its TF32 switch as an argument
 (models/yolov8.py `conv_f32` calls it while a graph is traced): a traced
@@ -80,6 +82,8 @@ SCHEMAS = {
                  "Tensor? residual, Tensor(a!) out) -> ()",
     "conv_f32": "(Tensor x, Tensor weight, Tensor? bias, int stride, "
                 "bool allow_tf32) -> Tensor",
+    "window_attn": "(Tensor qkv, Tensor table, Tensor scale, int window, "
+                   "int shift, int heads) -> Tensor",
 }
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
@@ -201,7 +205,11 @@ def _register_kernels() -> None:
                  (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, c2),
                  dtype=torch.bfloat16)),
             ("conv_silu", conv_block, "conv_silu_op_plain",
-             "conv_silu_kernel", lambda *a: None)):
+             "conv_silu_kernel", lambda *a: None),
+            ("window_attn", attention, "window_attn_op_plain",
+             "window_attn_kernel",
+             lambda qkv, *a: qkv.new_empty(
+                 (*qkv.shape[:-1], qkv.shape[-1] // 3)))):
         _register(name, flash_plain if cpu is None else _late(module, cpu),
                   _late(module, cuda), fake)
 

@@ -54,7 +54,7 @@ def _profile_keys(profile: dict | None) -> None:
         for k in ("decode_ms", "enqueue_ms", "wait_ms", "fetch_ms",
                   "overflow_ms"):
             profile.setdefault(k, 0.0)
-        for k in ("overflow_dets", "ladder_chunks"):
+        for k in ("overflow_dets", "ladder_chunks", "cls_windows"):
             profile.setdefault(k, 0)
 
 
@@ -101,6 +101,22 @@ class BatchRunner:
     @property
     def device(self) -> torch.device:
         return self.pipeline.device
+
+    def _count_windows(self, profile: dict | None, crops: int) -> None:
+        """profile["cls_windows"] += the attention windows the classifier
+        runs for `crops` crops (a SwinV2's windows of every block; 0 for a
+        ViT, whose attention is global)."""
+        if profile is not None:
+            profile["cls_windows"] += crops * getattr(
+                self.pipeline.vit, "windows_per_crop", 0)
+
+    def _step_crops(self, images: torch.Tensor) -> int:
+        """Classify slots of one fused step on this process (its rows of
+        the batch over a mesh)."""
+        rows = images.shape[0]
+        if self.mesh is not None:
+            rows //= axis_size(self.mesh, "data")
+        return rows * self.pipeline.classify_budget
 
     def _fn(self, images: torch.Tensor) -> torch.Tensor:
         """Fused pipeline -> one packed (B, 1 + 9T) f32 array (over a mesh:
@@ -189,6 +205,7 @@ class BatchRunner:
                                              batch.dtype)])
                     dev_batch = torch.from_numpy(batch).to(self.device)
                     res = self._fn(dev_batch)
+                    self._count_windows(profile, self._step_crops(dev_batch))
                     pending.append((chunk, dev_batch, _HostCopy([res])))
         return {"n": len(paths), "pending": pending}
 
@@ -230,7 +247,10 @@ class BatchRunner:
                          patches (`runner.ladder`, `runner.patch`): 0.0
                          when no detection overflowed;
           overflow_dets  detections the ladder re-classified;
-          ladder_chunks  ladder chunks dispatched."""
+          ladder_chunks  ladder chunks dispatched;
+          cls_windows    attention windows the classifier ran, fused steps
+                         and ladder chunks together (SwinV2; 0 for a
+                         ViT)."""
         return self._finish(self._enqueue(paths, profile), profile)
 
     def run_stream(self, requests, profile: dict | None = None):
@@ -263,8 +283,8 @@ class BatchRunner:
         a `runner.ladder` a ladder chunk, and in the last drain the
         `runner.patch` of the chunks still in flight.  `profile`, when
         given, accumulates enqueue_ms, wait_ms, fetch_ms (the unpack alone),
-        overflow_ms, overflow_dets and ladder_chunks, as `run_paths`
-        documents them (decode_ms stays 0.0)."""
+        overflow_ms, overflow_dets, ladder_chunks and cls_windows, as
+        `run_paths` documents them (decode_ms stays 0.0)."""
         _profile_keys(profile)
         pending: deque = deque()
         window: deque = deque()
@@ -282,6 +302,7 @@ class BatchRunner:
         for dv in dev_batches:
             with span("runner.enqueue", profile, "enqueue_ms"):
                 pending.append((dv, _HostCopy([self._fn(dv)])))
+            self._count_windows(profile, self._step_crops(dv))
             if len(pending) > _DEPTH:
                 drain_one(False)
         while pending:
@@ -347,6 +368,7 @@ class BatchRunner:
             if profile is not None:
                 profile["overflow_dets"] += len(part)
                 profile["ladder_chunks"] += 1
+            self._count_windows(profile, k_slots)
 
     def _ladder_flush(self, window: deque, profile: dict | None) -> None:
         """Patch every ladder chunk still in flight (`runner.patch`)."""

@@ -335,7 +335,9 @@ def module_tree(module: nn.Module) -> dict:
 
 
 def load_pipeline_tree(pipeline, tree: dict):
-    """Load a two-stage tree {"det": {"params"}, "vit": {"params"}}."""
+    """Load a two-stage tree {"det": {"params"}, "vit": {"params"}}; the
+    classifier's tree is the ViT's or the SwinV2's (timm's leaf names),
+    whichever the pipeline's classifier is."""
     load_tree(pipeline.det, tree["det"]["params"])
     load_tree(pipeline.vit, tree["vit"]["params"])
     return pipeline
@@ -378,11 +380,24 @@ def init_vit_tree(spec, num_classes: int, gen: torch.Generator) -> dict:
     return {"params": tree}
 
 
+def init_swin_tree(spec, num_classes: int, gen: torch.Generator) -> dict:
+    """Random SwinV2Classifier variables {"params": tree}, drawn on the
+    CPU from `gen`: truncated lecun-normal weights, zero biases, unit
+    LayerNorm scales, logit scales ln 10."""
+    from yolov8_vit_tpu_torch.models.swin import SwinV2Classifier
+    model = SwinV2Classifier(spec, num_classes)
+    _reset(model, gen)
+    return {"params": module_tree(model)}
+
+
 def init_tree(pipeline, seed: int = 0) -> dict:
     """Random two-stage parameters made on the CPU from `seed`: the
-    detector's (`init_detect_tree`), then the ViT's (`init_vit_tree`)
-    from one generator."""
+    detector's (`init_detect_tree`), then the classifier's
+    (`init_vit_tree`, or `init_swin_tree` for a SwinV2 spec) from one
+    generator."""
+    from yolov8_vit_tpu_torch.models.swin import SwinV2Spec
     gen = torch.Generator().manual_seed(seed)
+    init_cls = init_swin_tree if isinstance(pipeline.vit_spec, SwinV2Spec) \
+        else init_vit_tree
     return {"det": init_detect_tree(pipeline.det.spec, gen),
-            "vit": init_vit_tree(pipeline.vit_spec, pipeline.num_classes,
-                                 gen)}
+            "vit": init_cls(pipeline.vit_spec, pipeline.num_classes, gen)}
