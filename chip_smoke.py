@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
      process per source, in parallel) and print the build seconds and
      ptxas's registers, shared memory and spills of each kernel of the
      quant_mlp (C, G, H), attention (D, E, F; the SDPA core at head dims
-     16-128), nms (A, B, I) and fused_region (J) libraries;
+     16-128), nms (A, B, I), fused_region (J), conv_silu (K) and
+     mlp_block (the float ViT's MLP sub-block) libraries;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: A and B (NMS) bit-exact on dense inputs with
      score ties and IoU-exactly-at-threshold pairs, A also at a 1280 x 1280
@@ -37,7 +38,12 @@ Phases (any failure exits non-zero):
      bound; mt::window_attn (`check_window_attn`) at SwinV2-B/256's six
      block shapes, 64 crops, bf16, within WINDOW_BF16_TOL of its plain
      version, timed beside its bound, its plain version and torch's SDPA
-     on the same windows (the `kernel window_attn` row);
+     on the same windows (the `kernel window_attn` row); mt::mlp_block
+     (`check_mlp_block`) at ViT-B/8's fused step, (64, 785, 768) bf16,
+     within MLP_BF16_TOL of its plain version, timed beside its bound,
+     the plain chain, kernel E's GEMM and torch's matmul at its two
+     products' shapes, its three launches split by the profiler (the
+     `kernel mlp_block` row);
   4. small-input checks: the whole pipeline on the card against the same
      pipeline on the CPU (plain versions), f32, integer outputs equal, with
      a w8a ViT (kernels C, D) and a float one (kernel E);
@@ -50,7 +56,8 @@ Phases (any failure exits non-zero):
   6. the float ViT-B/8 slice: `make_runner(classify_budget=2)` with no
      engine dirs (YOLOv8-s + the default ViTSpec(): ViT-B/8, 785 tokens,
      float weights, fused attention; bf16, batch 32), seed-0 weights with
-     the fitted head, driven as phase 5;
+     the fitted head, driven as phase 5, one mt::mlp_block launch a block
+     of every classifier call;
      then YOLOv8-s + SwinV2-B/256 (window 16), bf16, seed-0 weights with
      the fitted head, driven the same way (`swin_slice`): A, B, K and
      mt::window_attn launched, one window_attn launch for each of the 24
@@ -284,6 +291,17 @@ KERNEL_TOL = {"atol": 0.05, "rtol": 2.0 ** -7}
 # a wrong scale) moves every element and fails both.
 FLOAT_BF16_TOL = {"atol": 2.0 ** -7, "rtol": 2.0 ** -7,
                   "mean_rel": 2.0 ** -9, "f32_ratio": 1.1}
+# mt::mlp_block with bf16 activations: FLOAT_BF16_TOL's mean and f32 ratio,
+# and its elementwise bar, which at most `flip_share` of the outputs may
+# pass.  The kernel sums each row's LN statistics in another order than
+# PyTorch's reductions; where that moves the mean or the variance by an
+# f32 ulp, a few LN outputs land on their other bf16 neighbour (142 of
+# 38.6 M at 64 x 785 rows; the GEMMs and epilogues downstream were
+# bit-exact with the plain chain on the kernel's own LN output), and such
+# a flip passes three more rounding points (product, bias, residual),
+# which can put an output two ulps off (2 of 38.6 M beyond the bar, by
+# 0.031 at |output| 2.5).  A fault moves whole rows, tiles or columns.
+MLP_BF16_TOL = dict(FLOAT_BF16_TOL, flip_share=1e-6)
 # E and F with f32 activations: the same float products, summed in another
 # order (GEMM tiles, two-pass softmax sums) than cuBLAS and torch's
 # reductions, on unit-size outputs: a few f32 ulps of the 768-term sums
@@ -343,7 +361,8 @@ ROW_WRAPPER = {"nms_argmax_ml": ("efficient_nms_scan", "vit_b16_w8a"),
                "nms_argmax": ("nms_single_label", "public_ops"),
                "fused_b1b2": ("fused_b1b2", "public_ops"),
                "conv_silu": ("conv_silu", "vit_b16_w8a"),
-               "window_attn": ("window_attention", "swin_v2b")}
+               "window_attn": ("window_attention", "swin_v2b"),
+               "mlp_block": ("mlp_block", "vit_b8_float")}
 
 
 def _smi() -> str:
@@ -1161,7 +1180,8 @@ def b16_w8a_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
     init_s = time.perf_counter() - t0
     runner = BatchRunner(pipe, max_batch=BATCH)
     out = drive(torch, ops, runner, rng, batches, "vit_b16_w8a",
-                must=A_B + C_D + ("conv_silu",), must_not=E_F)
+                must=A_B + C_D + ("conv_silu",),
+                must_not=E_F + ("mlp_block",))
     return dict(out, init_fit_s=init_s), runner, tree
 
 
@@ -1183,8 +1203,15 @@ def b8_float_slice(torch, ops, batches: int) -> tuple[dict, object, dict]:
     tree = _fit_head(pipe, init_tree(pipe, 0), np.random.default_rng(1))
     init_s = time.perf_counter() - t0
     out = drive(torch, ops, runner, np.random.default_rng(2), batches,
-                "vit_b8_float", must=A_B + ("fused_attention_block",),
+                "vit_b8_float",
+                must=A_B + ("fused_attention_block", "mlp_block"),
                 must_not=C_D + ("flash_attention",))
+    if out["launches"]["mlp_block"] != pipe.vit_spec.depth \
+            * out["cls_forwards"]:
+        raise AssertionError(
+            f"vit_b8_float: {out['launches']['mlp_block']} mlp_block "
+            f"launches for {out['cls_forwards']} classifier calls of "
+            f"{pipe.vit_spec.depth} blocks")
     return dict(out, init_fit_s=init_s, tokens=pipe.vit_spec.tokens), \
         runner, tree
 
@@ -1214,7 +1241,7 @@ def swin_slice(torch, ops, batches: int) -> dict:
     runner = BatchRunner(pipe, max_batch=BATCH)
     out = drive(torch, ops, runner, rng, batches, "swin_v2b",
                 must=A_B + ("conv_silu", "window_attention"),
-                must_not=C_D + E_F)
+                must_not=C_D + E_F + ("mlp_block",))
     blocks = sum(spec.depths)
     if out["launches"]["window_attention"] != blocks * out["cls_forwards"] \
             or out["cls_windows"] != spec.windows_per_crop() \
@@ -1245,12 +1272,12 @@ def b8_engine_runs(torch, ops, det_tree: dict, vit_tree: dict,
     from yolov8_vit_tpu_torch.weights import save_engine
     modes = {  # quant: (tree, kernels that must launch, kernels that must not)
         "w8a": (prequantize_tree(vit_tree, MLP_AND_ATTN_SUFFIXES),
-                A_B + C_D, E_F),
+                A_B + C_D, E_F + ("mlp_block",)),
         "w8": (prequantize_tree(vit_tree, MLP_SUFFIXES),
                A_B + ("quant_mlp_ln_fused", "fused_attention_block"),
-               ("fused_attention_block_i8", "flash_attention")),
+               ("fused_attention_block_i8", "flash_attention", "mlp_block")),
         "dynamic": (vit_tree, A_B + ("fused_attention_block",),
-                    C_D + ("flash_attention",)),
+                    C_D + ("flash_attention", "mlp_block")),
     }
     root = os.path.join(ENGINE_DIR, "vit_b8")
     shutil.rmtree(root, ignore_errors=True)
@@ -1620,6 +1647,116 @@ def check_window_attn(torch, ops, smi: str,
     return row, {"card": smi, "crops": crops, "shapes": shapes,
                  "stats": stats,
                  "roofline_pct": 100.0 * tot["bound_ms"] / tot["ms"]}
+
+
+def check_mlp_block(torch, ops, smi: str,
+                    crops: int = BATCH * BUDGET) -> tuple[dict, dict]:
+    """mt::mlp_block (ops/mlp.py) at ViT-B/8's 785 tokens and width 768 on
+    `crops` crops (b8f.bulk32's fused step), bf16, held against its plain
+    version (the Block's float MLP expression) within FLOAT_BF16_TOL and
+    timed (CUDA events) beside its bound (benchmark/counts/mlp_block.py's
+    count), the plain chain (cuBLAS GEMMs and PyTorch's passes) and kernel
+    E's bf16 GEMM at the two products' shapes (fc1 with its bias epilogue,
+    fc2 with bias and residual; no LN, no GELU); the device ms a call of
+    each of the three launches (profiler).  Returns (the kernels row, the
+    report)."""
+    import ctypes
+    from yolov8_vit_tpu_torch import _build
+    from yolov8_vit_tpu_torch.ops.mlp import mlp_block_plain
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(19)
+    d, t, hid = 768, 785, 3072
+    m, bf16 = crops * t, torch.bfloat16
+    x = torch.randn(crops, t, d, generator=g).to(dev, bf16)
+    ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+          (0.1 * torch.randn(d, generator=g)).to(dev))
+    w1 = (torch.randn(d, hid, generator=g) * d ** -0.5).to(dev, bf16)
+    w2 = (torch.randn(hid, d, generator=g) * hid ** -0.5).to(dev, bf16)
+    b1 = (0.05 * torch.randn(hid, generator=g)).to(dev, bf16)
+    b2 = (0.05 * torch.randn(d, generator=g)).to(dev, bf16)
+    args = (x, *ln, w1, b1, w2, b2)
+
+    def kernel():
+        return ops.mlp_block(*args, ln_eps=1e-6)
+
+    stats = {}
+    ops.reset_launch_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    if ops.launch_counts()["mlp_block"] != 1:
+        raise AssertionError(f"mt::mlp_block: {ops.launch_counts()}")
+    ref = mlp_block_plain(*args, 1e-6)
+    f32_ref = mlp_block_plain(*(a.float() for a in args), 1e-6)
+    tol = MLP_BF16_TOL
+    gf, rf = got.float(), ref.float()
+    diff = (gf - rf).abs()
+    beyond = int((diff > tol["atol"] + tol["rtol"] * rf.abs()).sum())
+    err = float(diff.max())
+    stats["mlp_block"] = {
+        "beyond_bar": beyond, "outputs": diff.numel(), "max_abs_err": err,
+        "differ_share": float((diff > 0).float().mean()),
+        "mean_rel": float(diff.mean() / rf.abs().mean()),
+        "f32_ratio": float((gf - f32_ref).abs().mean()
+                           / (rf - f32_ref).abs().mean())}
+    st = stats["mlp_block"]
+    if not bool(torch.isfinite(gf).all()) \
+            or beyond > tol["flip_share"] * diff.numel() \
+            or st["mean_rel"] > tol["mean_rel"] \
+            or st["f32_ratio"] > tol["f32_ratio"]:
+        raise AssertionError(f"kernel mlp_block != plain: {st}, bar {tol}")
+    del gf, rf, diff
+    del got, ref, f32_ref
+    torch.cuda.empty_cache()
+    ms = _time_ms(kernel, 20)
+    plain_ms = _time_ms(lambda: mlp_block_plain(*args, 1e-6), 10)
+    # kernel E's GEMM at the same products (launch_gemm_bf16: E's own
+    # instantiations, f32 bias)
+    so = _build.lib("attention")
+    fn = so.launch_gemm_bf16
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    a = x.view(m, d)
+    h = torch.empty(m, hid, dtype=bf16, device=dev)
+    out = torch.empty(m, d, dtype=bf16, device=dev)
+    fb1, fb2 = b1.float(), b2.float()
+
+    def e_gemm(src, w, n, k, bias, res, dst):
+        def call():
+            rc = fn(src.data_ptr(), w.data_ptr(), m, n, k, bias.data_ptr(),
+                    None if res is None else res.data_ptr(), dst.data_ptr(),
+                    _build.stream_ptr())
+            _build.check(so, rc, "launch_gemm_bf16")
+            return dst
+        return call
+
+    e_ms = {"fc1": _time_ms(e_gemm(a, w1, hid, d, fb1, None, h), 20),
+            "fc2": _time_ms(e_gemm(h, w2, d, hid, fb2, a, out), 20)}
+    lib_ms = {"fc1": _time_ms(lambda: a @ w1, 20),
+              "fc2": _time_ms(lambda: h @ w2, 20)}
+    parts = profile_parts(torch, kernel, {
+        "ln": "ln_rows_kernel", "fc1": r"mlp_gemm_kernel<0>",
+        "fc2": r"mlp_gemm_kernel<1>"})
+    del h, out
+    op_ms = 4.0 * m * d * hid / PEAK_BF16_FLOPS * 1e3
+    gemm_ms = op_ms / 2
+    nbytes = 2 * 2 * m * d + 2 * 2 * d * hid + 2 * (hid + d) + 4 * 2 * d
+    bound, by = _bound_ms(nbytes, op_ms)
+    row = {"name": "mlp_block", "route": "cuda",
+           "source": "yolov8_vit_tpu_torch/csrc/mlp_block.cu",
+           "replaces": "none (models/vit.py Block's float MLP chain)",
+           "shape": f"({crops}, {t}, {d}) bf16, hidden {hid}",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "max_abs_err": err,
+           "roofline_pct": 100.0 * bound / ms, "e_gemm_ms": e_ms,
+           "gemm_library_ms": lib_ms, "parts_ms": parts,
+           "parts_roofline_pct": {k: 100.0 * gemm_ms / parts[k]
+                                  for k in ("fc1", "fc2")}}
+    return row, {"card": smi, "stats": stats,
+                 "e_gemm_roofline_pct": {k: 100.0 * gemm_ms / v
+                                         for k, v in e_ms.items()},
+                 "library_roofline_pct": {k: 100.0 * gemm_ms / v
+                                          for k, v in lib_ms.items()}}
 
 
 def detector_convs(torch, det, frames, ref_frames: int = 8,
@@ -4784,7 +4921,8 @@ def main() -> int:
     ptxas = {}
     for lib_name, what in (("quant_mlp", "C, G, H"), ("attention", "D, E, F"),
                            ("nms", "A, B, I"), ("fused_region", "J"),
-                           ("conv_silu", "K")):
+                           ("conv_silu", "K"),
+                           ("mlp_block", "the float ViT's MLP")):
         ptxas[lib_name] = _ptxas_summary(_build.build_log(lib_name))
         print(f"ptxas, {lib_name} library ({what}):\n  "
               + "\n  ".join(ptxas[lib_name]), flush=True)
@@ -4853,6 +4991,18 @@ def main() -> int:
     _report(f"mt::window_attn against its plain version "
             f"({time.perf_counter() - t0:.1f} s)",
             {k: v for k, v in win.items() if k != "shapes"})
+
+    t0 = time.perf_counter()
+    m_row, mlp_rep = check_mlp_block(torch, ops, smi)
+    rows.append(m_row)
+    print(f"kernel mlp_block: ms {m_row['ms']:.4f} plain_ms "
+          f"{m_row['plain_ms']:.4f} bound_ms {m_row['bound_ms']:.4f} "
+          f"({m_row['bound_by']}) max_abs_err {m_row['max_abs_err']} "
+          f"parts_ms {json.dumps(m_row['parts_ms'])} e_gemm_ms "
+          f"{json.dumps(m_row['e_gemm_ms'])} gemm_library_ms "
+          f"{json.dumps(m_row['gemm_library_ms'])}", flush=True)
+    _report(f"mt::mlp_block against its plain version "
+            f"({time.perf_counter() - t0:.1f} s)", mlp_rep)
 
     small = {q: small_input_check(torch, q) for q in ("w8a", "none")}
     print(f"small input card == CPU: {small}", flush=True)
@@ -5041,6 +5191,7 @@ def main() -> int:
                    "small_input": small,
                    "paths": paths, "engine": eng, "detector_convs": conv,
                    "conv_block": conv_k, "window_attn": win,
+                   "mlp_block": mlp_rep,
                    "kept_set": kept,
                    "public_ops": gj, "service": service, "train": train,
                    "checkpoints": ckpt, "host_decode_mesh": host,

@@ -1,6 +1,6 @@
-"""PyTorch port, the CUDA kernels A-K and mt::window_attn against their
-plain versions on the card, at small shapes, at ViT-B/8's 785 tokens and
-at SwinV2-B/256's stage shapes.  Marked `cuda`: they skip where no CUDA device is
+"""PyTorch port, the CUDA kernels A-K, mt::window_attn and mt::mlp_block
+against their plain versions on the card, at small shapes, at ViT-B/8's
+785 tokens and at SwinV2-B/256's stage shapes.  Marked `cuda`: they skip where no CUDA device is
 present (a CUDA kernel has no interpret mode).  On the GPU machine, which
 has no jax for tests/conftest.py, run them with
 `python3 -m pytest tests/test_torch_kernels_gpu.py -q --noconftest`.
@@ -912,3 +912,96 @@ def test_swinv2_b_replays_its_forward_as_a_graph(dev):
     with torch.no_grad():
         model(a)
     assert not model._graphs
+
+
+# mt::mlp_block (batch, tokens, D, H): the fused step of b8f.bulk32 and
+# ragged row counts (785 and 197-token crops: no multiple of the 128-row
+# tile or the 256-row cluster tile), a ladder chunk of 512 crops, ViT-S/16
+# widths (D 384: a partial 256-column tile in fc2) and a width below one
+# k-tile with a ragged hidden tile
+_MLP_SHAPES = [(64, 785, 768, 3072), (1, 785, 768, 3072),
+               (3, 197, 768, 3072), (512, 785, 768, 3072),
+               (2, 197, 384, 1536), (3, 33, 40, 104)]
+
+
+@pytest.mark.parametrize("shape", _MLP_SHAPES)
+def test_mlp_block_matches_plain(dev, shape):
+    """The three launches against the Block's float MLP expression in
+    bf16, held as kernel E (FLOAT_BF16_TOL: the mean error at most 2^-9
+    of the mean |output|, the error against the same function in f32 at
+    most 1.1x the plain version's) but for the elementwise bar 2^-7 +
+    2^-7 |output|, which at most 1e-6 of the outputs may pass (as
+    chip_smoke.py's MLP_BF16_TOL).  The kernel sums each row's LN
+    statistics in another order than PyTorch's reductions; where that
+    moves the mean or the variance by an f32 ulp, a few LN outputs land
+    on their other bf16 neighbour (142 of 38.6 M at 64 x 785 rows; the
+    GEMMs and epilogues downstream were bit-exact with the plain chain on
+    the kernel's own LN output), and such a flip passes through three
+    more rounding points (product, bias, residual), which can put an
+    output two ulps off (2 of 38.6 M outputs beyond the bar, by 0.031 at
+    |output| 2.5).  A fault moves whole rows, tiles or columns and fails
+    the share and the mean."""
+    from yolov8_vit_tpu_torch.ops.mlp import mlp_block_plain
+    b, t, d, hid = shape
+    g = _gen(20)
+    bf16 = torch.bfloat16
+    x = torch.randn(b, t, d, generator=g).to(dev, bf16)
+    ln = ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+          (0.1 * torch.randn(d, generator=g)).to(dev))
+    w1 = (torch.randn(d, hid, generator=g) * d ** -0.5).to(dev, bf16)
+    w2 = (torch.randn(hid, d, generator=g) * hid ** -0.5).to(dev, bf16)
+    b1 = (0.05 * torch.randn(hid, generator=g)).to(dev, bf16)
+    b2 = (0.05 * torch.randn(d, generator=g)).to(dev, bf16)
+    args = (x, *ln, w1, b1, w2, b2)
+    ops.reset_launch_counts()
+    got = ops.mlp_block(*args, ln_eps=1e-6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlp_block"] == 1
+    assert got.shape == x.shape and got.dtype == bf16
+    ref = mlp_block_plain(*args, 1e-6).float()
+    f32_ref = mlp_block_plain(*(a.float() for a in args), 1e-6)
+    got = got.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    beyond = int((err > 2 ** -7 + 2 ** -7 * ref.abs()).sum())
+    assert beyond <= 1e-6 * err.numel(), (beyond, float(err.max()))
+    mean_rel = float(err.mean() / ref.abs().mean())
+    assert mean_rel <= 2 ** -9, mean_rel
+    ratio = float((got - f32_ref).abs().mean()
+                  / (ref - f32_ref).abs().mean())
+    assert ratio <= 1.1, ratio
+
+
+def test_mlp_block_gelu_is_torch_gelu_on_every_bf16(dev):
+    """fc1's epilogue GELU (f32 erf formula, one rounding) on every bf16
+    bit pattern is F.gelu's on the card, bit for bit (NaNs aside)."""
+    from yolov8_vit_tpu_torch.ops.mlp import gelu_table
+    got = gelu_table(dev)
+    torch.cuda.synchronize()
+    x = torch.arange(65536, dtype=torch.int32, device=dev).to(
+        torch.int16).view(torch.bfloat16)
+    nan = torch.isnan(x)
+    ref = torch.nn.functional.gelu(x).view(torch.int16)
+    assert torch.equal(got[~nan], ref[~nan])
+    assert torch.isnan(got.view(torch.bfloat16)[nan]).all()
+
+
+def test_mlp_block_in_every_block_of_the_bf16_vit(dev):
+    """A bf16 ViT-B/16 on the card: one mt::mlp_block launch a block, the
+    output within the bar of the plain path's; f32 launches none."""
+    from yolov8_vit_tpu_torch.models import vit
+    model = vit.ViTClassifier(vit.VIT_B16_224, 5, dtype=torch.bfloat16)
+    g = _gen(21)
+    for m in model.modules():
+        if hasattr(m, "reset"):
+            m.reset(g)
+    img = (torch.rand(2, 224, 224, 3, generator=g) * 2 - 1).to(dev)
+    for dtype, launches in ((torch.bfloat16, 12), (torch.float32, 0)):
+        model.dtype = dtype
+        model.to(dev).prepare()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = model(img)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["mlp_block"] == launches
+        assert torch.isfinite(out.float()).all()

@@ -11,7 +11,8 @@
 - Every kernel launcher (an operator's CUDA implementation) refuses CPU
   tensors: on the CPU only the plain versions run.
 - mt::window_attn (SwinV2's window attention) is held the same way, on a
-  shifted block's qkv.
+  shifted block's qkv, and mt::mlp_block (the float ViT's MLP sub-block)
+  on bf16 rows.
 - The registered schemas are ops/library.py's SCHEMAS, their one source
   (the native driver's are held against them in test_torch_driver.py).
 """
@@ -22,7 +23,7 @@ import torch
 from yolov8_vit_tpu_torch import ops
 from yolov8_vit_tpu_torch.models.yolov8 import conv_f32
 from yolov8_vit_tpu_torch.ops import attention, conv_block, fused_region, \
-    library, nms, quant
+    library, mlp, nms, quant
 
 OPS = list(library.SCHEMAS)
 
@@ -116,6 +117,15 @@ def op_args(name: str):
         return (torch.randn(2, 8, 8, 192, generator=g),
                 torch.rand(2, 49, generator=g) * 16,
                 _vec(2, g, 5.0, 20.0), 4, 2, 2)
+    if name == "mlp_block":
+        # two images of 5 tokens, width 32, hidden 64, weights in bf16
+        bf16 = torch.bfloat16
+        return (torch.randn(2, 5, d, generator=g).to(bf16), _vec(d, g),
+                _vec(d, g, -.1, .1),
+                (torch.randn(d, h, generator=g) * .2).to(bf16),
+                _vec(h, g, -.1, .1).to(bf16),
+                (torch.randn(h, d, generator=g) * .1).to(bf16),
+                _vec(d, g, -.1, .1).to(bf16), 1e-6)
     raise KeyError(name)
 
 
@@ -167,6 +177,8 @@ def _wrapper_case(name):
     if name == "window_attn":
         return (lambda qkv, t, s: attention.window_attention(
             qkv, t, s, window=4, shift=2, heads=2)), a[:3]
+    if name == "mlp_block":
+        return (lambda *t: mlp.mlp_block(*t, ln_eps=1e-6)), a[:7]
     raise KeyError(name)
 
 
@@ -206,7 +218,8 @@ LAUNCHERS = {"nms_argmax_ml": nms.nms_argmax_ml_kernel,
              "flash_attention": attention.flash_attention_kernel,
              "fused_b1b2": fused_region.fused_b1b2_kernel,
              "conv_silu": conv_block.conv_silu_kernel,
-             "window_attn": attention.window_attn_kernel}
+             "window_attn": attention.window_attn_kernel,
+             "mlp_block": mlp.mlp_block_kernel}
 
 
 @pytest.mark.parametrize("name", sorted(LAUNCHERS))

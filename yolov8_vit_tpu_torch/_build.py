@@ -42,6 +42,7 @@ SOURCES = {
     "fused_region": "fused_region.cu",   # kernel J
     "conv_silu": "conv_silu.cu",         # kernel K (the detector's ConvBlock)
     "window_attn": "window_attn.cu",     # SwinV2's window attention
+    "mlp_block": "mlp_block.cu",         # the float ViT's MLP sub-block
 }
 HEADERS = ("int8_common.cuh", "hopper.cuh", "sdpa.cuh",
            "gemm_float.cuh")
@@ -75,7 +76,8 @@ DRIVER_SOURCES = ("driver/mt_infer.cc", "host/imgproc.cc")
 DRIVER_LIB_MACROS = {"nms": "MT_LIB_NMS", "quant_mlp": "MT_LIB_QUANT_MLP",
                      "attention": "MT_LIB_ATTENTION",
                      "fused_region": "MT_LIB_FUSED_REGION",
-                     "conv_silu": "MT_LIB_CONV_SILU"}
+                     "conv_silu": "MT_LIB_CONV_SILU",
+                     "mlp_block": "MT_LIB_MLP_BLOCK"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -185,3 +185,18 @@ extern "C" int launch_flash_attention(
   a.prescale = 0;
   return launch_sdpa(a, dtype, nb, hd, static_cast<cudaStream_t>(stream));
 }
+
+// Kernel E's bf16 GEMM alone, as E runs its QKV (resid nullptr: + bias) and
+// proj (+ bias + resid) products: a (m, k), w (k, n), resid and out (m, n)
+// bf16, bias (n,) f32.  No path of the port calls it: chip_smoke.py times
+// it at other products' shapes as a yardstick.
+extern "C" int launch_gemm_bf16(const void* a, const void* w, int m, int n,
+                                int k, const float* bias, const void* resid,
+                                void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resid == nullptr)
+    return gemm_float<__nv_bfloat16, kFEpiBias>(a, w, m, n, k, bias, nullptr,
+                                                out, st);
+  return gemm_float<__nv_bfloat16, kFEpiResidual>(a, w, m, n, k, bias, resid,
+                                                  out, st);
+}

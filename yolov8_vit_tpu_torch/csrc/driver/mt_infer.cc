@@ -75,6 +75,9 @@
 #ifndef MT_LIB_CONV_SILU
 #define MT_LIB_CONV_SILU ""
 #endif
+#ifndef MT_LIB_MLP_BLOCK
+#define MT_LIB_MLP_BLOCK ""
+#endif
 
 namespace {
 
@@ -89,7 +92,8 @@ void* kernel_lib(const std::string& name) {
       {"quant_mlp", MT_LIB_QUANT_MLP},
       {"attention", MT_LIB_ATTENTION},
       {"fused_region", MT_LIB_FUSED_REGION},
-      {"conv_silu", MT_LIB_CONV_SILU}};
+      {"conv_silu", MT_LIB_CONV_SILU},
+      {"mlp_block", MT_LIB_MLP_BLOCK}};
   auto it = libs.find(name);
   if (it != libs.end()) return it->second;
   const std::string& path = paths.at(name);
@@ -537,6 +541,42 @@ void conv_silu(const Tensor& x_in, const Tensor& weight, const Tensor& bias,
   check("conv_silu", rc, what);
 }
 
+Tensor mlp_block(const Tensor& x_in, const Tensor& ln_scale,
+                 const Tensor& ln_bias, const Tensor& w1, const Tensor& b1,
+                 const Tensor& w2, const Tensor& b2, double ln_eps) {
+  require_cuda({&x_in, &ln_scale, &ln_bias, &w1, &b1, &w2, &b2});
+  const char* what = "mlp_block";
+  Tensor x = x_in.contiguous();
+  if (reinterpret_cast<uintptr_t>(x.data_ptr()) % 16) x = x.clone();
+  int64_t d = x.size(-1), hidden = w1.size(1), m = x.numel() / d;
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16 && d % 8 == 0 && d <= 2048 &&
+                  hidden % 8 == 0 && w1.size(0) == d && w2.size(0) == hidden &&
+                  w2.size(1) == d,
+              what, " takes bf16 x (..., D), w1 (D, H) and w2 (H, D), D (at "
+              "most 2048) and H multiples of 8");
+  auto aligned = [](Tensor c) {    // 16-byte aligned bases (TMA, vectors)
+    return reinterpret_cast<uintptr_t>(c.data_ptr()) % 16 ? c.clone() : c;
+  };
+  auto bf = [&](const Tensor& t) {
+    return aligned(t.to(at::kBFloat16).contiguous());
+  };
+  Tensor wa = bf(w1), ba = bf(b1), wb = bf(w2), bb = bf(b2);
+  Tensor ls = aligned(f32c(ln_scale)), lb = aligned(f32c(ln_bias));
+  auto o = x.options();
+  Tensor ln = at::empty({m, d}, o), h = at::empty({m, hidden}, o),
+         out = at::empty_like(x);
+  using Fn = int (*)(const void*, int, int, int, const float*, const float*,
+                     float, const void*, const void*, const void*,
+                     const void*, void*, void*, void*, void*);
+  int rc = entry<Fn>("mlp_block", "launch_mlp_block")(
+      x.data_ptr(), int(m), int(d), int(hidden), ls.data_ptr<float>(),
+      lb.data_ptr<float>(), float(ln_eps), wa.data_ptr(), ba.data_ptr(),
+      wb.data_ptr(), bb.data_ptr(), ln.data_ptr(), h.data_ptr(),
+      out.data_ptr(), stream());
+  check("mlp_block", rc, what);
+  return out;
+}
+
 Tensor conv_f32(const Tensor& x, const Tensor& weight, const OptTensor& bias,
                 int64_t stride, bool allow_tf32) {
   auto& ctx = at::globalContext();
@@ -570,6 +610,7 @@ TORCH_LIBRARY(mt, m) { MT_DEFINE_OPS(m) }
   m.impl("nms_argmax", nms_argmax);               \
   m.impl("fused_b1b2", fused_b1b2);               \
   m.impl("conv_silu", conv_silu);                 \
+  m.impl("mlp_block", mlp_block);                 \
   m.impl("conv_f32", conv_f32);
 
 // the kernel operators are registered for the CPU too, where they refuse

@@ -9,7 +9,10 @@ JAX package's `ViTClassifier`, for every spec it accepts.  A block is
              "xla": LN1, qkv, einsum attention, proj (torch ops);
              "pallas": the same with kernel F for the attention;
   MLP        quant "w8"/"w8a": kernel C; "none": LN2, Dense, exact GELU,
-             Dense; "dynamic": the same with per-call int8 dense layers.
+             Dense, the residual add, which on the card with bf16
+             activations (not the training form) is one operator,
+             mt::mlp_block (ops/mlp.py: three launches); "dynamic": the
+             same chain with per-call int8 dense layers.
 
 Module and buffer names follow the flax parameter tree, as in yolov8.py.
 Buffers keep the dtype of the tree they were loaded from (a bf16-stored
@@ -37,6 +40,7 @@ from yolov8_vit_tpu_torch.ops.attention import (flash_attention,
                                                 fused_attention_block,
                                                 fused_attention_block_i8,
                                                 sdpa_heads_plain)
+from yolov8_vit_tpu_torch.ops.mlp import layer_norm, mlp_block
 from yolov8_vit_tpu_torch.ops.quant import (padded_t, quant_dense,
                                             quant_dense_fused,
                                             quant_mlp_ln_fused)
@@ -180,11 +184,7 @@ class LayerNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x, dtype):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale)
-        return (y + self.bias).to(dtype)
+        return layer_norm(x, self.scale, self.bias, self.eps, dtype)
 
 
 class _Attn(nn.Module):
@@ -216,6 +216,11 @@ def _dense_classes(spec: ViTSpec):
     dynamic = QuantDense if spec.quant == "dynamic" else Dense
     attn = Dense if spec.attn_impl == "fused" else dynamic
     return attn, QDense if spec.quant == "w8" else dynamic
+
+
+def _mlp_kernel_runs(x: torch.Tensor) -> bool:
+    """Whether mt::mlp_block runs a float MLP on x: bf16 on the card."""
+    return x.is_cuda and x.dtype == torch.bfloat16
 
 
 class Block(nn.Module):
@@ -256,6 +261,10 @@ class Block(nn.Module):
                 x, self.norm2.scale, self.norm2.bias, f1.kernel_i8,
                 f1.w_scale, f1.bias, f2.kernel_i8, f2.w_scale, f2.bias,
                 ln_eps=s.ln_eps, w1_t=f1.kernel_t, w2_t=f2.kernel_t)
+        if s.quant == "none" and not f1.live and _mlp_kernel_runs(x):
+            n2 = self.norm2
+            return mlp_block(x, n2.scale, n2.bias, f1.kernel_c, f1.bias_c,
+                             f2.kernel_c, f2.bias_c, ln_eps=s.ln_eps)
         h = f2(F.gelu(f1(self.norm2(x, dt))))
         return x + h
 

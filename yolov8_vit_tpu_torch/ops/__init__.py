@@ -20,6 +20,7 @@ from yolov8_vit_tpu_torch.ops.fused_region import (  # noqa: F401
 from yolov8_vit_tpu_torch.ops.letterbox import (  # noqa: F401
     letterbox_fast, letterbox_params,
 )
+from yolov8_vit_tpu_torch.ops.mlp import mlp_block  # noqa: F401
 from yolov8_vit_tpu_torch.ops.nms import (  # noqa: F401
     area_sorted_nms, efficient_nms_scan, nms_single_label,
 )
@@ -37,13 +38,15 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 import yolov8_vit_tpu_torch.ops.library  # noqa: F401,E402
 
 # the wrappers that launch a CUDA kernel, each with its `launches` count
-# (kernels A-F, then G-K, then SwinV2's window attention; A, B and I are
+# (kernels A-F, then G-K, then SwinV2's window attention and the float
+# ViT's MLP sub-block; A, B and I are
 # three forms of one ordered-scan kernel, csrc/nms.cu `greedy_nms_kernel`;
 # I is efficient_nms_scan(multi_label=False), counted on nms_single_label)
 KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
                    fused_attention_block_i8, fused_attention_block,
                    flash_attention, quant_dense_fused, quant_mlp_fused,
-                   nms_single_label, fused_b1b2, conv_silu, window_attention)
+                   nms_single_label, fused_b1b2, conv_silu, window_attention,
+                   mlp_block)
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,7 @@
 """The hand-written kernels as `torch.library` operators (namespace `mt`).
 
-Every kernel entry point A-K, and SwinV2's window attention, is one
-operator, so that `torch.export` and
+Every kernel entry point A-K, SwinV2's window attention and the float
+ViT's MLP sub-block is one operator, so that `torch.export` and
 AOTInductor see it as one opaque node of the graph (runtime/engine.py's
 `attach_aot` and `attach_compiled`, runtime/export.py's native packages)
 and the eager wrappers reach it through the dispatcher:
@@ -19,6 +19,7 @@ and the eager wrappers reach it through the dispatcher:
     fused_b1b2        J       fused_region.region_b1b2_plain  ..._kernel
     conv_silu         K       conv_block.conv_silu_op_plain  ..._kernel
     window_attn       Swin    attention.window_attn_op_plain  ..._kernel
+    mlp_block         ViT MLP mlp.mlp_block_op_plain  mlp.mlp_block_kernel
 
 plus `conv_f32`, cuDNN's convolution with its TF32 switch as an argument
 (models/yolov8.py `conv_f32` calls it while a graph is traced): a traced
@@ -84,6 +85,8 @@ SCHEMAS = {
                 "bool allow_tf32) -> Tensor",
     "window_attn": "(Tensor qkv, Tensor table, Tensor scale, int window, "
                    "int shift, int heads) -> Tensor",
+    "mlp_block": "(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, "
+                 "Tensor b1, Tensor w2, Tensor b2, float ln_eps) -> Tensor",
 }
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
@@ -163,7 +166,7 @@ def _late(module, name: str):
 
 def _register_kernels() -> None:
     from yolov8_vit_tpu_torch.ops import (attention, conv_block,
-                                          fused_region, nms, quant)
+                                          fused_region, mlp, nms, quant)
 
     def nms_fake(boxes, scores, iou, score, max_output, window, chunk):
         b = boxes.shape[0]
@@ -209,7 +212,9 @@ def _register_kernels() -> None:
             ("window_attn", attention, "window_attn_op_plain",
              "window_attn_kernel",
              lambda qkv, *a: qkv.new_empty(
-                 (*qkv.shape[:-1], qkv.shape[-1] // 3)))):
+                 (*qkv.shape[:-1], qkv.shape[-1] // 3))),
+            ("mlp_block", mlp, "mlp_block_op_plain",
+             "mlp_block_kernel", same_as)):
         _register(name, flash_plain if cpu is None else _late(module, cpu),
                   _late(module, cuda), fake)
 
