@@ -1711,11 +1711,8 @@ def check_mlp_block(torch, ops, smi: str,
     plain_ms = _time_ms(lambda: mlp_block_plain(*args, 1e-6), 10)
     # kernel E's GEMM at the same products (launch_gemm_bf16: E's own
     # instantiations, f32 bias)
-    so = _build.lib("attention")
-    fn = so.launch_gemm_bf16
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    gemm_args = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3 \
+        + (ctypes.c_void_p,) * 3
     a = x.view(m, d)
     h = torch.empty(m, hid, dtype=bf16, device=dev)
     out = torch.empty(m, d, dtype=bf16, device=dev)
@@ -1723,10 +1720,11 @@ def check_mlp_block(torch, ops, smi: str,
 
     def e_gemm(src, w, n, k, bias, res, dst):
         def call():
-            rc = fn(src.data_ptr(), w.data_ptr(), m, n, k, bias.data_ptr(),
-                    None if res is None else res.data_ptr(), dst.data_ptr(),
-                    _build.stream_ptr())
-            _build.check(so, rc, "launch_gemm_bf16")
+            _build.launch("attention", "launch_gemm_bf16", gemm_args,
+                          src.data_ptr(), w.data_ptr(), m, n, k,
+                          bias.data_ptr(),
+                          None if res is None else res.data_ptr(),
+                          dst.data_ptr(), what="launch_gemm_bf16")
             return dst
         return call
 

@@ -126,9 +126,9 @@ def test_kernel_f_reads_in_place_only_views_tma_can_load():
 
 
 def test_wrappers_registered_and_cpu_runs_plain():
-    """E and F carry launch counts in ops.KERNEL_WRAPPERS; CPU tensors run
+    """E and F carry launch counts (ops.launch_counts); CPU tensors run
     the plain versions and launch nothing."""
-    names = [fn.__name__ for fn in ops.KERNEL_WRAPPERS]
+    names = list(ops.launch_counts())
     assert "fused_attention_block" in names and "flash_attention" in names
     ops.reset_launch_counts()
     x, *rest = _block_inputs(np.random.default_rng(1), 1, 9, 32)

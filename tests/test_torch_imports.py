@@ -27,12 +27,12 @@ PACKAGES = ("", "models", "runtime", "serve", "ops", "train", "data",
             "utils", "parallel")
 # TPU layout and XLA plumbing, no counterpart by design (ROADMAP.md)
 NO_COUNTERPART = {"letterbox_s2d", "enable_compilation_cache"}
-# names only the port exports: the launch counts of the CUDA kernels'
-# wrappers, the kernels no JAX __init__ names (the float ViT's MLP
+# names only the port exports: the launch counts of the CUDA kernels,
+# the kernels no JAX __init__ names (the float ViT's MLP
 # sub-block among them), and the SwinV2 classifier (the JAX package has no
 # Swin)
 PORT_ONLY = {
-    "ops": {"KERNEL_WRAPPERS", "reset_launch_counts", "launch_counts",
+    "ops": {"reset_launch_counts", "launch_counts",
             "fused_attention_block_i8", "crop_to_patches_i8", "fused_b1b2",
             "prepare_region", "region_b1b2_plain", "nms_single_label",
             "conv_silu", "window_attention", "mlp_block"},

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolov8_vit_tpu_torch import _build, ops
+from yolov8_vit_tpu_torch import ops
 from yolov8_vit_tpu_torch.ops.attention import (attn_block_i8_plain,
                                                 flash_attention_plain,
                                                 fused_attention_block_plain)
@@ -154,7 +154,7 @@ def test_kernel_b_rows_match_plain(dev, monkeypatch, t, window, chunk):
     boxes, scores, valid = (torch.from_numpy(np.stack(x)).to(dev)
                             for x in zip(*rows))
     _sizes(monkeypatch, window, chunk)
-    got = nms.mask_scan_kernel(boxes, scores, valid, 0.45, 0.35)
+    got = nms.mask_scan_kernel(boxes, scores, valid, None, 0.45, 0.35)
     pri = nms.mask_priority(boxes, scores, valid, 0.35)
     assert torch.equal(got, mask_scan_plain(boxes, pri, 0.45))
     assert torch.equal(ops.area_sorted_nms(boxes, scores, valid), got)
@@ -170,7 +170,7 @@ def test_kernel_b_keeps_more_than_its_shared_copy(dev, monkeypatch, window,
     boxes, scores, valid = (torch.from_numpy(np.stack(x)).to(dev)
                             for x in zip(*rows))
     _sizes(monkeypatch, window, chunk)
-    got = nms.mask_scan_kernel(boxes, scores, valid, 0.45, 0.35)
+    got = nms.mask_scan_kernel(boxes, scores, valid, None, 0.45, 0.35)
     pri = nms.mask_priority(boxes, scores, valid, 0.35)
     assert int(got.sum(1).min()) > 1024
     assert torch.equal(got, mask_scan_plain(boxes, pri, 0.45))
@@ -670,10 +670,9 @@ def test_kernel_c_writes_no_row_past_m(dev, m):
     w1, s1, b1 = _w(g, _VIT_D, _VIT_HID, dev)
     w2, s2, b2 = _w(g, _VIT_HID, _VIT_D, dev)
     buf = torch.full((m + 256, _VIT_D), 7.0, dtype=x.dtype, device=dev)
-    so, rc, out = quant._launch_mlp(
+    out = quant._launch_mlp(
         "kernel C", x, x, (lns, lnb), w1.t().contiguous(), s1, b1,
         w2.t().contiguous(), s2, b2, 1e-6, out=buf[:m])
-    _build.check(so, rc, "kernel C")
     torch.cuda.synchronize()
     assert bool((buf[m:] == 7.0).all())
     _close(out, quant_mlp_ln_plain(x, lns, lnb, w1, s1, b1, w2, s2, b2),

@@ -30,13 +30,13 @@ TINY = vit.ViTSpec(img_size=32, patch=8, dim=32, depth=2, heads=2,
 def op_calls(monkeypatch):
     """The operator's CPU calls, recorded."""
     calls = []
-    plain = mlp.mlp_block_op_plain
+    plain = mlp.mlp_block_plain
 
     def record(x, *a):
         calls.append(tuple(x.shape))
         return plain(x, *a)
 
-    monkeypatch.setattr(mlp, "mlp_block_op_plain", record)
+    monkeypatch.setattr(mlp, "mlp_block_plain", record)
     return calls
 
 

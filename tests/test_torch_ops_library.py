@@ -13,14 +13,22 @@
 - mt::window_attn (SwinV2's window attention) is held the same way, on a
   shifted block's qkv, and mt::mlp_block (the float ViT's MLP sub-block)
   on bf16 rows.
-- The registered schemas are ops/library.py's SCHEMAS, their one source
-  (the native driver's are held against them in test_torch_driver.py).
+- The registered schemas, implementations, fakes and launch counts all
+  come from ops/library.py's one table, OPS (the native driver's schemas
+  are held against SCHEMAS in test_torch_driver.py).
+- Launches are counted at the seam: the registered CUDA implementation
+  adds one to its row's count when its launcher returns, none when it
+  raises; `_build.launch`, the one ctypes call of every launcher, types
+  an entry point once, appends the stream and raises on a CUDA error.
 """
+import collections
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from yolov8_vit_tpu_torch import ops
+from yolov8_vit_tpu_torch import _build, ops
 from yolov8_vit_tpu_torch.models.yolov8 import conv_f32
 from yolov8_vit_tpu_torch.ops import attention, conv_block, fused_region, \
     library, mlp, nms, quant
@@ -134,11 +142,27 @@ def test_opcheck(name):
     torch.library.opcheck(library.op(name), op_args(name))
 
 
+# the launch counts' names, in the order chip_smoke.py and the benchmark
+# read them
+COUNTED = ("efficient_nms_scan", "area_sorted_nms", "quant_mlp_ln_fused",
+           "fused_attention_block_i8", "fused_attention_block",
+           "flash_attention", "quant_dense_fused", "quant_mlp_fused",
+           "nms_single_label", "fused_b1b2", "conv_silu", "window_attention",
+           "mlp_block")
+
+
 def test_schemas_are_the_one_source():
-    for name, schema in library.SCHEMAS.items():
-        assert library.schema_string(name) == f"mt::{name}{schema}"
-    # an operator for each kernel wrapper, and conv_f32
-    assert len(OPS) == len(ops.KERNEL_WRAPPERS) + 1
+    assert OPS == list(library.OPS)
+    for name, row in library.OPS.items():
+        assert library.SCHEMAS[name] == row.schema
+        assert library.schema_string(name) == f"mt::{name}{row.schema}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                f"mt::{name}", key), (name, key)
+    assert tuple(ops.launch_counts()) == COUNTED == tuple(
+        row.counted for row in library.OPS.values() if row.counted)
+    # an operator for each kernel's count, and conv_f32
+    assert len(OPS) == len(COUNTED) + 1
 
 
 def _wrapper_case(name):
@@ -209,7 +233,7 @@ def test_wrapper_exports_as_one_operator(name):
 
 LAUNCHERS = {"nms_argmax_ml": nms.nms_argmax_ml_kernel,
              "nms_argmax": nms.nms_argmax_kernel,
-             "mask_scan": nms.mask_scan_op_kernel,
+             "mask_scan": nms.mask_scan_kernel,
              "quant_mlp_ln": quant.quant_mlp_ln_kernel,
              "quant_mlp": quant.quant_mlp_kernel,
              "quant_dense": quant.quant_dense_kernel,
@@ -228,6 +252,82 @@ def test_launcher_refuses_cpu_tensors(name):
     with pytest.raises(ValueError, match="on the card only"):
         LAUNCHERS[name](*op_args(name))
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHERS))
+def test_cuda_implementation_counts_one_launch(name, monkeypatch):
+    """The registered CUDA implementation, its launcher replaced by a stub
+    that gives the fake's outputs, adds one to its row's count; a launcher
+    that raises adds none."""
+    row = library.OPS[name]
+    module = LAUNCHERS[name].__module__
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    monkeypatch.setattr(module + "." + row.cuda, row.fake)
+    before = ops.launch_counts()
+    library.op(name).redispatch(cuda, *op_args(name))
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {row.counted: 1}
+
+    def refused(*args):
+        raise RuntimeError("refused")
+
+    monkeypatch.setattr(module + "." + row.cuda, refused)
+    with pytest.raises(RuntimeError, match="refused"):
+        library.op(name).redispatch(cuda, *op_args(name))
+    assert ops.launch_counts() == after
+
+
+class _StubEntry:
+    """A C entry point: records its calls and how often its argtypes are
+    set, and returns `rc`."""
+
+    def __init__(self, rc):
+        self.rc, self.calls, self.typed = rc, [], 0
+        self._argtypes, self.restype = None, None
+
+    @property
+    def argtypes(self):
+        return self._argtypes
+
+    @argtypes.setter
+    def argtypes(self, types):
+        self.typed += 1
+        self._argtypes = types
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+class _StubLib:
+    def __init__(self, rc):
+        self.launch_stub = _StubEntry(rc)
+
+    def kernel_error_string(self, rc):
+        return f"stub error {rc}".encode()
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+def test_build_launch_types_once_appends_stream_raises(rc, monkeypatch):
+    so = _StubLib(rc)
+    monkeypatch.setattr(_build, "lib", lambda name: so)
+    monkeypatch.setattr(_build, "stream_ptr", lambda: 1234)
+    monkeypatch.setattr(_build, "_entries", collections.defaultdict(dict))
+    types = (ctypes.c_void_p, ctypes.c_int)
+    for _ in range(2):
+        if rc:
+            with pytest.raises(RuntimeError, match=r"^stub op: CUDA error "
+                               r"700 \(stub error 700\)$"):
+                _build.launch("stub", "launch_stub", types, 5, 6,
+                              what="stub op")
+        else:
+            _build.launch("stub", "launch_stub", types, 5, 6, what="stub op")
+    entry = so.launch_stub
+    assert entry.typed == 1
+    assert tuple(entry.argtypes) == types + (ctypes.c_void_p,)
+    assert entry.restype is ctypes.c_int
+    assert entry.calls == [(5, 6, 1234)] * 2
 
 
 def test_cpu_calls_count_no_launch():

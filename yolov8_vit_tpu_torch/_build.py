@@ -21,6 +21,7 @@ each library (`build_log`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -80,6 +81,8 @@ DRIVER_LIB_MACROS = {"nms": "MT_LIB_NMS", "quant_mlp": "MT_LIB_QUANT_MLP",
                      "mlp_block": "MT_LIB_MLP_BLOCK"}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# library -> entry point -> its C function, argtypes and restype set
+_entries: collections.defaultdict[str, dict] = collections.defaultdict(dict)
 
 
 def nvcc_path() -> str:
@@ -351,11 +354,22 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check(so: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise when a launch returned a CUDA error (refused launches never
-    run, and a later synchronize would not report them)."""
+def launch(lib_name: str, entry: str, argtypes, *args, what: str) -> None:
+    """Call the C entry point `entry` of library `lib_name` on `args` and
+    the current stream, its last argument.  `argtypes` are the arguments'
+    ctypes types without the stream's, set with the int return at the
+    entry's first call.  Raises when the launch returned a CUDA error
+    (refused launches never run, and a later synchronize would not report
+    them)."""
+    fn = _entries[lib_name].get(entry)
+    if fn is None:
+        fn = getattr(lib(lib_name), entry)
+        fn.argtypes = (*argtypes, ctypes.c_void_p)
+        fn.restype = ctypes.c_int
+        _entries[lib_name][entry] = fn
+    rc = fn(*args, stream_ptr())
     if rc != 0:
-        msg = so.kernel_error_string(rc).decode()
+        msg = lib(lib_name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 

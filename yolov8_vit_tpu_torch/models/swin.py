@@ -51,11 +51,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolov8_vit_tpu_torch import ops
 from yolov8_vit_tpu_torch.models.vit import Dense
 from yolov8_vit_tpu_torch.ops.attention import (relative_coords,
                                                 window_attention,
                                                 window_attention_plain)
+from yolov8_vit_tpu_torch.ops.library import add_launches, launch_counts
 
 
 def _lecun_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -376,27 +376,24 @@ class SwinV2Classifier(nn.Module):
         forward's ~270 kernels.  A shape's first call runs the forward as
         it is (which also loads the libraries and cuBLAS's workspace) and
         then captures it; each later call copies the crops into the graph's
-        input, replays the graph and copies its logits out.  The kernel
-        wrappers' launch counts (ops.launch_counts) grow by the captured
-        launches at each replay, and not at the capture."""
+        input, replays the graph and copies its logits out.  The kernels'
+        launch counts (ops.launch_counts) grow by the captured launches at
+        each replay, and not at the capture."""
         key = (tuple(img.shape), img.dtype, img.device)
         if key not in self._graphs:
             out = self._forward(img)
-            counts = ops.launch_counts()
+            before = launch_counts()
             static_in = img.clone()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 static_out = self._forward(static_in)
-            captured = {fn: fn.launches - counts[fn.__name__]
-                        for fn in ops.KERNEL_WRAPPERS}
-            for fn, n in captured.items():
-                fn.launches -= n
+            captured = {k: n - before[k] for k, n in launch_counts().items()}
+            add_launches({k: -n for k, n in captured.items()})
             self._graphs[key] = (graph, static_in, static_out, captured)
             return out
         graph, static_in, static_out, captured = self._graphs[key]
         static_in.copy_(img)
         graph.replay()
-        for fn, n in captured.items():
-            fn.launches += n
+        add_launches(captured)
         return static_out.clone()
 

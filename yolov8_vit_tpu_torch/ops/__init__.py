@@ -34,25 +34,7 @@ from yolov8_vit_tpu_torch.ops.resize import (  # noqa: F401
 )
 
 # registers the kernels as torch.library operators (mt::*), which the
-# wrappers call (`ops.library`, not an exported name)
-import yolov8_vit_tpu_torch.ops.library  # noqa: F401,E402
-
-# the wrappers that launch a CUDA kernel, each with its `launches` count
-# (kernels A-F, then G-K, then SwinV2's window attention and the float
-# ViT's MLP sub-block; A, B and I are
-# three forms of one ordered-scan kernel, csrc/nms.cu `greedy_nms_kernel`;
-# I is efficient_nms_scan(multi_label=False), counted on nms_single_label)
-KERNEL_WRAPPERS = (efficient_nms_scan, area_sorted_nms, quant_mlp_ln_fused,
-                   fused_attention_block_i8, fused_attention_block,
-                   flash_attention, quant_dense_fused, quant_mlp_fused,
-                   nms_single_label, fused_b1b2, conv_silu, window_attention,
-                   mlp_block)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+# wrappers call, and counts their launches
+from yolov8_vit_tpu_torch.ops.library import (  # noqa: F401,E402
+    launch_counts, reset_launch_counts,
+)

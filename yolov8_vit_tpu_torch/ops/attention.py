@@ -41,6 +41,13 @@ from yolov8_vit_tpu_torch.ops.quant import (DTYPE_CODES, layernorm_f32,
 # a head dim above it to a multiple of 16 (`_core_head_dim`)
 SDPA_HEAD_DIMS = (16, 32, 64, 128)
 
+# the C entry points' arguments before the stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ATTN_BLOCK_I8_ARGS = (_P,) + (_I,) * 8 + (_F, _P, _P, _F) + (_P,) * 13
+_ATTN_BLOCK_ARGS = (_P,) + (_I,) * 7 + (_F, _P, _P, _F) + (_P,) * 8
+_FLASH_ARGS = (_P,) * 3 + (_I,) * 6 + (ctypes.c_longlong, _F, _P)
+_WINDOW_ARGS = (_P,) * 4 + (_I,) * 7
+
 
 def _core_head_dim(hd: int) -> int:
     """The head dim the SDPA core runs for a real head dim hd >= 1: the
@@ -109,7 +116,7 @@ def _per_head_rows(w: torch.Tensor, heads: int, hdp: int) -> torch.Tensor:
 
 # ---- kernel D ----------------------------------------------------------------
 def attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv, wproj_i8,
-                        sproj, bproj, *, heads: int, ln_eps: float = 1e-6,
+                        sproj, bproj, heads: int, ln_eps: float = 1e-6,
                         t_real: int | None = None) -> torch.Tensor:
     """Plain version of kernel D on x (B, T, D)."""
     b, t, d = x.shape
@@ -162,21 +169,11 @@ def fused_attention_block_i8(x: torch.Tensor, ln_scale, ln_bias, wqkv_i8,
         wproj_i8, vecs[4], vecs[5], heads, ln_eps, t_real, wqkv_t, wproj_t)
 
 
-def attn_block_i8_op_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
-                           wproj_i8, sproj, bproj, heads, ln_eps, t_real,
-                           wqkv_t, wproj_t):
-    """Operator mt::attn_block_i8 on the CPU."""
-    return attn_block_i8_plain(x, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
-                               wproj_i8, sproj, bproj, heads=heads,
-                               ln_eps=ln_eps, t_real=t_real)
-
-
 def attn_block_i8_kernel(xc, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
                          wproj_i8, sproj, bproj, heads, ln_eps, t_real,
                          wqkv_t, wproj_t) -> torch.Tensor:
     """Kernel D on CUDA tensors (operator mt::attn_block_i8): xc (B, T, D)
-    contiguous, the vectors f32 contiguous.  Counted on
-    fused_attention_block_i8."""
+    contiguous, the vectors f32 contiguous."""
     vecs = [ln_scale, ln_bias, sqkv, bqkv, sproj, bproj]
     _build.require_cuda(xc, wqkv_i8, wproj_i8, *vecs)
     b, t, d = xc.shape
@@ -205,31 +202,20 @@ def attn_block_i8_kernel(xc, ln_scale, ln_bias, wqkv_i8, sqkv, bqkv,
     so_ = torch.empty(m, dtype=f32, device=dev)
     out = torch.empty_like(xp)
     scale = float(torch.tensor(hd ** -0.5, dtype=dt))
-    so = _build.lib("attention")
-    fn = so.launch_attn_block_i8
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_float] + [ctypes.c_void_p] * 14)
-        fn.restype = ctypes.c_int
     p = [v.data_ptr() for v in vecs]
-    rc = fn(xp.data_ptr(), DTYPE_CODES[dt], b, t, d, dp, dh, heads,
-            t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
-            wqt.data_ptr(), p[2], p[3], wpt.data_ptr(), p[4], p[5],
-            hq.data_ptr(), sx.data_ptr(), qkv.data_ptr(),
-            heads_out.data_ptr(), oq.data_ptr(), so_.data_ptr(),
-            out.data_ptr(), _build.stream_ptr())
-    fused_attention_block_i8.launches += 1
-    _build.check(so, rc, "attn_block_i8 (kernel D)")
+    _build.launch("attention", "launch_attn_block_i8", _ATTN_BLOCK_I8_ARGS,
+                  xp.data_ptr(), DTYPE_CODES[dt], b, t, d, dp, dh, heads,
+                  t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
+                  wqt.data_ptr(), p[2], p[3], wpt.data_ptr(), p[4], p[5],
+                  hq.data_ptr(), sx.data_ptr(), qkv.data_ptr(),
+                  heads_out.data_ptr(), oq.data_ptr(), so_.data_ptr(),
+                  out.data_ptr(), what="attn_block_i8 (kernel D)")
     return out[:, :d].reshape(b, t, d).contiguous()
-
-
-fused_attention_block_i8.launches = 0
 
 
 # ---- kernel E ----------------------------------------------------------------
 def fused_attention_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
-                                bproj, *, heads: int, ln_eps: float = 1e-6,
+                                bproj, heads: int, ln_eps: float = 1e-6,
                                 t_real: int | None = None) -> torch.Tensor:
     """Plain version of kernel E on x (B, T, D): LN in f32 rounded to the
     dtype, qkv = f32-accumulated h.W + b rounded to the dtype, SDPA,
@@ -279,19 +265,10 @@ def fused_attention_block(x: torch.Tensor, ln_scale, ln_bias, wqkv, bqkv,
         wproj.to(dt).contiguous(), vecs[3], heads, ln_eps, t_real)
 
 
-def attn_block_op_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                        heads, ln_eps, t_real):
-    """Operator mt::attn_block on the CPU."""
-    return fused_attention_block_plain(x, ln_scale, ln_bias, wqkv, bqkv,
-                                       wproj, bproj, heads=heads,
-                                       ln_eps=ln_eps, t_real=t_real)
-
-
 def attn_block_kernel(xc, ln_scale, ln_bias, wq, bqkv, wp, bproj, heads,
                       ln_eps, t_real) -> torch.Tensor:
     """Kernel E on CUDA tensors (operator mt::attn_block): xc (B, T, D)
-    and the weights in its dtype, contiguous; vectors f32.  Counted on
-    fused_attention_block."""
+    and the weights in its dtype, contiguous; vectors f32."""
     vecs = [ln_scale, ln_bias, bqkv, bproj]
     _build.require_cuda(xc, wq, wp, *vecs)
     b, t, d = xc.shape
@@ -308,24 +285,14 @@ def attn_block_kernel(xc, ln_scale, ln_bias, wq, bqkv, wp, bproj, heads,
     heads_out = torch.empty(m, dh, dtype=dt, device=dev)
     out = torch.empty_like(xc)
     scale = float(torch.tensor(hd ** -0.5, dtype=dt))
-    so = _build.lib("attention")
-    fn = so.launch_attn_block
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_float] + [ctypes.c_void_p] * 9)
-    fn.restype = ctypes.c_int
     p = [v.data_ptr() for v in vecs]
-    rc = fn(xc.data_ptr(), DTYPE_CODES[dt], b, t, d, dh, heads,
-            t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
-            wq.data_ptr(), p[2], wp.data_ptr(), p[3], h.data_ptr(),
-            qkv.data_ptr(), heads_out.data_ptr(), out.data_ptr(),
-            _build.stream_ptr())
-    fused_attention_block.launches += 1
-    _build.check(so, rc, "attn_block (kernel E)")
+    _build.launch("attention", "launch_attn_block", _ATTN_BLOCK_ARGS,
+                  xc.data_ptr(), DTYPE_CODES[dt], b, t, d, dh, heads,
+                  t if t_real is None else t_real, scale, p[0], p[1], ln_eps,
+                  wq.data_ptr(), p[2], wp.data_ptr(), p[3], h.data_ptr(),
+                  qkv.data_ptr(), heads_out.data_ptr(), out.data_ptr(),
+                  what="attn_block (kernel E)")
     return out
-
-
-fused_attention_block.launches = 0
 
 
 # ---- kernel F ----------------------------------------------------------------
@@ -366,7 +333,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_kernel(q, k, v) -> torch.Tensor:
     """Kernel F on CUDA tensors (operator mt::flash_attention), read in
-    place where `_strided_ok`.  Counted on flash_attention."""
+    place where `_strided_ok`."""
     _build.require_cuda(q, k, v)
     b, t, heads, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape \
@@ -380,21 +347,12 @@ def flash_attention_kernel(q, k, v) -> torch.Tensor:
     if not (q.stride()[:2] == k.stride()[:2] == v.stride()[:2]):
         q, k, v = (x.contiguous() for x in (q, k, v))
     out = torch.empty(b, t, heads, hdp, dtype=q.dtype, device=q.device)
-    so = _build.lib("attention")
-    fn = so.launch_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
-            b, t, heads, hdp, q.stride(1), q.stride(0), hd ** -0.5,
-            out.data_ptr(), _build.stream_ptr())
-    flash_attention.launches += 1
-    _build.check(so, rc, "flash_attention (kernel F)")
+    _build.launch("attention", "launch_flash_attention", _FLASH_ARGS,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  DTYPE_CODES[q.dtype], b, t, heads, hdp, q.stride(1),
+                  q.stride(0), hd ** -0.5, out.data_ptr(),
+                  what="flash_attention (kernel F)")
     return out if hdp == hd else out[..., :hd].contiguous()
-
-
-flash_attention.launches = 0
 
 
 # ---- mt::window_attn ----------------------------------------------------
@@ -481,16 +439,9 @@ def window_attention(qkv: torch.Tensor, table: torch.Tensor,
                                     heads)
 
 
-def window_attn_op_plain(qkv, table, scale, window, shift, heads):
-    """Operator mt::window_attn on the CPU."""
-    return window_attention_plain(qkv, table, scale, window, shift,
-                                  heads).contiguous()
-
-
 def window_attn_kernel(qkv, table, scale, window, shift,
                        heads) -> torch.Tensor:
-    """csrc/window_attn.cu on CUDA tensors (operator mt::window_attn).
-    Counted on window_attention."""
+    """csrc/window_attn.cu on CUDA tensors (operator mt::window_attn)."""
     _build.require_cuda(qkv, table, scale)
     b, h, w, c3 = qkv.shape
     c = c3 // 3
@@ -505,17 +456,8 @@ def window_attn_kernel(qkv, table, scale, window, shift,
             f"{qkv.dtype} {tuple(qkv.shape)}, heads {heads}, window "
             f"{window}, shift {shift}, table {tuple(table.shape)}")
     out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
-    so = _build.lib("window_attn")
-    fn = so.launch_window_attn
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(qkv.data_ptr(), table.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), b, h, w, c, heads, window, shift,
-            _build.stream_ptr())
-    window_attention.launches += 1
-    _build.check(so, rc, "window_attn")
+    _build.launch("window_attn", "launch_window_attn", _WINDOW_ARGS,
+                  qkv.data_ptr(), table.data_ptr(), scale.data_ptr(),
+                  out.data_ptr(), b, h, w, c, heads, window, shift,
+                  what="window_attn")
     return out
-
-
-window_attention.launches = 0

@@ -29,6 +29,10 @@ import torch
 
 from yolov8_vit_tpu_torch import _build
 
+# the C entry point's arguments before the stream
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_CONV_SILU_ARGS = (_P, _I, _I, _I, _I, _LL, _P, _I, _I, _I, _P, _P, _LL, _P,
+                   _LL)
 
 def kernel_layout(kernel: torch.Tensor) -> torch.Tensor:
     """An OIHW conv kernel -> kernel K's weights: bf16 in HWIO memory,
@@ -102,8 +106,7 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def conv_silu_kernel(x, weight, bias, stride, residual, out) -> None:
-    """Kernel K on CUDA tensors (operator mt::conv_silu).  Counted on
-    conv_silu."""
+    """Kernel K on CUDA tensors (operator mt::conv_silu)."""
     _build.require_cuda(x, weight, bias, out)
     if residual is not None:
         _build.require_cuda(residual)
@@ -128,19 +131,9 @@ def conv_silu_kernel(x, weight, bias, stride, residual, out) -> None:
         x = x.contiguous()
     if residual is not None and not _rows_aligned(residual):
         residual = residual.contiguous()
-    so = _build.lib("conv_silu")
-    fn = so.launch_conv_silu
-    if fn.argtypes is None:
-        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [p, i, i, i, i, ll, p, i, i, i, p, p, ll, p, ll, p]
-        fn.restype = i
-    rc = fn(x.data_ptr(), b, h, w, cin, x.stride(2), weight.data_ptr(), k,
-            stride, cout, bias.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            0 if residual is None else residual.stride(2), out.data_ptr(),
-            out.stride(2), _build.stream_ptr())
-    conv_silu.launches += 1
-    _build.check(so, rc, "conv_silu (kernel K)")
-
-
-conv_silu.launches = 0
+    _build.launch("conv_silu", "launch_conv_silu", _CONV_SILU_ARGS,
+                  x.data_ptr(), b, h, w, cin, x.stride(2), weight.data_ptr(),
+                  k, stride, cout, bias.data_ptr(),
+                  None if residual is None else residual.data_ptr(),
+                  0 if residual is None else residual.stride(2),
+                  out.data_ptr(), out.stride(2), what="conv_silu (kernel K)")

@@ -38,6 +38,10 @@ from yolov8_vit_tpu_torch import _build
 
 PARAM_NAMES = ("b1", "cv1", "m0_cv1", "m0_cv2", "cv2")
 
+# the C entry points' arguments before the stream
+_P = ctypes.c_void_p
+_FUSED_B1B2_ARGS = (_P,) + (ctypes.c_int,) * 5 + (_P,) * 4
+
 
 def region_params(det_tree: dict) -> dict:
     """A detector's flax-layout params -> this module's flat param dict
@@ -196,7 +200,7 @@ def fused_b1b2_op_plain(x, w, bias, c2):
 
 def fused_b1b2_kernel(x, w, bias, c2) -> torch.Tensor:
     """Kernel J on CUDA tensors (operator mt::fused_b1b2): x (B, H, W, c1)
-    bf16, w and bias `prepare_region`'s.  Counted on fused_b1b2."""
+    bf16, w and bias `prepare_region`'s."""
     _build.require_cuda(x, w, bias)
     b, h, wd, c1 = x.shape
     fused = (c1, c2) in FUSED_WIDTHS
@@ -214,21 +218,12 @@ def fused_b1b2_kernel(x, w, bias, c2) -> torch.Tensor:
     scratch = None if fused else torch.empty(
         b * (h // 2) * (wd // 2) * 3 * c2, dtype=torch.bfloat16,
         device=x.device)
-    so = _build.lib("fused_region")
-    fn = so.launch_fused_b1b2
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-    rc = fn(xc.data_ptr(), b, h, wd, c1, c2, w.data_ptr(), bias.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            _build.stream_ptr())
-    fused_b1b2.launches += 1
-    _build.check(so, rc, "fused_b1b2 (kernel J)")
+    _build.launch("fused_region", "launch_fused_b1b2", _FUSED_B1B2_ARGS,
+                  xc.data_ptr(), b, h, wd, c1, c2, w.data_ptr(),
+                  bias.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  out.data_ptr(), what="fused_b1b2 (kernel J)")
     return out
-
-
-fused_b1b2.launches = 0
 
 
 def silu_table(device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
@@ -243,11 +238,6 @@ def silu_table(device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("silu_table runs the kernel's epilogue on the card")
     fast = torch.empty(65536, dtype=torch.bfloat16, device=dev)
     exact = torch.empty_like(fast)
-    so = _build.lib("fused_region")
-    fn = so.launch_silu_table
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
-    _build.check(so, fn(fast.data_ptr(), exact.data_ptr(),
-                        _build.stream_ptr()), "silu_table")
+    _build.launch("fused_region", "launch_silu_table", (_P, _P),
+                  fast.data_ptr(), exact.data_ptr(), what="silu_table")
     return fast, exact

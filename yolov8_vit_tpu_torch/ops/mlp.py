@@ -24,6 +24,9 @@ import torch.nn.functional as F
 
 from yolov8_vit_tpu_torch import _build
 
+# the C entry points' arguments before the stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MLP_BLOCK_ARGS = (_P, _I, _I, _I, _P, _P, ctypes.c_float) + (_P,) * 7
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float, dtype) -> torch.Tensor:
@@ -62,8 +65,7 @@ def mlp_block(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 def mlp_block_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2,
                      ln_eps) -> torch.Tensor:
-    """csrc/mlp_block.cu on CUDA tensors (operator mt::mlp_block).
-    Counted on mlp_block."""
+    """csrc/mlp_block.cu on CUDA tensors (operator mt::mlp_block)."""
     _build.require_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2)
     d = x.shape[-1]
     hidden = w1.shape[1]
@@ -91,18 +93,11 @@ def mlp_block_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2,
     ln = torch.empty(m, d, dtype=bf16, device=x.device)
     h = torch.empty(m, hidden, dtype=bf16, device=x.device)
     out = torch.empty_like(x)
-    so = _build.lib("mlp_block")
-    fn = so.launch_mlp_block
-    if fn.argtypes is None:
-        i, p = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, i, i, i, p, p, ctypes.c_float] + [p] * 8
-        fn.restype = i
-    rc = fn(x.data_ptr(), m, d, hidden, ln_scale.data_ptr(),
-            ln_bias.data_ptr(), ln_eps, w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), ln.data_ptr(), h.data_ptr(),
-            out.data_ptr(), _build.stream_ptr())
-    mlp_block.launches += 1
-    _build.check(so, rc, "mlp_block")
+    _build.launch("mlp_block", "launch_mlp_block", _MLP_BLOCK_ARGS,
+                  x.data_ptr(), m, d, hidden, ln_scale.data_ptr(),
+                  ln_bias.data_ptr(), ln_eps, w1.data_ptr(), b1.data_ptr(),
+                  w2.data_ptr(), b2.data_ptr(), ln.data_ptr(), h.data_ptr(),
+                  out.data_ptr(), what="mlp_block")
     return out
 
 
@@ -110,18 +105,6 @@ def gelu_table(device) -> torch.Tensor:
     """fc1's GELU as the kernel computes it, for every bf16 bit pattern i
     (at i): a (65536,) int16 tensor of bf16 patterns on the card."""
     out = torch.empty(65536, dtype=torch.int16, device=device)
-    so = _build.lib("mlp_block")
-    fn = so.launch_gelu_table
-    fn.argtypes = [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    _build.check(so, fn(out.data_ptr(), _build.stream_ptr()), "gelu_table")
+    _build.launch("mlp_block", "launch_gelu_table", (_P,), out.data_ptr(),
+                  what="gelu_table")
     return out
-
-
-def mlp_block_op_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, ln_eps):
-    """Operator mt::mlp_block on the CPU."""
-    return mlp_block_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                           ln_eps).contiguous()
-
-
-mlp_block.launches = 0

@@ -44,15 +44,10 @@ _BIG = 2 ** 30
 NMS_WINDOW = 1024
 NMS_CHUNK = 64
 
+# the C entry points' arguments before the stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "launch_nms_argmax_ml": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
-    + [_P] * 6,
-    "launch_nms_argmax": [_P, _P, _I, _I, _I, _F, _F, _I, _I, _I]
-    + [_P] * 6,
-    "launch_mask_scan": [_P] * 4 + [_I, _I, _F, _F, _I, _I] + [_P] * 4,
-}
-_launchers: dict = {}
+_ARGMAX_ARGS = (_P, _P, _I, _I, _I, _F, _F, _I, _I, _I) + (_P,) * 5
+_MASK_SCAN_ARGS = (_P,) * 4 + (_I, _I, _F, _F, _I, _I) + (_P,) * 3
 
 
 def _window_chunk(window, chunk) -> tuple[int, int]:
@@ -60,18 +55,6 @@ def _window_chunk(window, chunk) -> tuple[int, int]:
     NMS_CHUNK as they are now."""
     return (NMS_WINDOW if window is None else window,
             NMS_CHUNK if chunk is None else chunk)
-
-
-def _launcher(name: str):
-    """The nms library's C function `name`, its argtypes set once a
-    process."""
-    fn = _launchers.get(name)
-    if fn is None:
-        fn = getattr(_build.lib("nms"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _launchers[name] = fn
-    return fn
 
 
 def _iou_vs(boxes: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -190,9 +173,6 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
     order.  multi_label: every (anchor, class) pair competes (kernel A);
     otherwise each anchor competes once, with its best class (kernel I).
     CUDA tensors launch the kernel; CPU tensors run its plain version."""
-    if not multi_label:
-        return nms_single_label(boxes, scores, iou_threshold,
-                                 score_threshold, max_output)
     single = boxes.dim() == 2
     if single:
         boxes, scores = boxes[None], scores[None]
@@ -202,23 +182,13 @@ def efficient_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, *,
     if boxes.shape != (b, n, 4):
         raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
                          f"{tuple(scores.shape)}")
-    out = torch.ops.mt.nms_argmax_ml(boxes, scores, iou_threshold,
-                                     score_threshold, max_output, NMS_WINDOW,
-                                     NMS_CHUNK)
+    scan = torch.ops.mt.nms_argmax_ml if multi_label \
+        else torch.ops.mt.nms_argmax
+    out = scan(boxes, scores, iou_threshold, score_threshold, max_output,
+               NMS_WINDOW, NMS_CHUNK)
     if single:
         out = tuple(o[0] for o in out)
     return out
-
-
-efficient_nms_scan.launches = 0
-
-
-def nms_argmax_ml_op_plain(boxes, scores, iou_threshold, score_threshold,
-                           max_output, window, chunk):
-    """Operator mt::nms_argmax_ml on the CPU: the plain version (the
-    kernel's window and chunk do not change what it computes)."""
-    return nms_argmax_ml_plain(boxes, scores, iou_threshold, score_threshold,
-                               max_output)
 
 
 def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
@@ -228,7 +198,7 @@ def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
     """Kernel A on CUDA tensors (operator mt::nms_argmax_ml): boxes (B, N,
     4) and scores (B, N, C) f32 contiguous -> the outputs of
     `nms_argmax_ml_plain`.  Any N * C is taken; window and chunk default to
-    NMS_WINDOW and NMS_CHUNK.  Counted on efficient_nms_scan."""
+    NMS_WINDOW and NMS_CHUNK (they do not change what it computes)."""
     _build.require_cuda(boxes, scores)
     window, chunk = _window_chunk(window, chunk)
     if score_threshold < -1.0:
@@ -245,35 +215,22 @@ def nms_argmax_ml_kernel(boxes: torch.Tensor, scores: torch.Tensor,
     os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
     ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
     pool = torch.empty(b, n * c, dtype=torch.int64, device=dev)
-    rc = _launcher("launch_nms_argmax_ml")(
-        boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
-        score_threshold, max_output, window, chunk, pool.data_ptr(),
-        num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
-        _build.stream_ptr())
-    efficient_nms_scan.launches += 1
-    _build.check(_build.lib("nms"), rc, "nms_argmax_ml_kernel (kernel A)")
+    _build.launch("nms", "launch_nms_argmax_ml", _ARGMAX_ARGS,
+                  boxes.data_ptr(), scores.data_ptr(), b, n, c,
+                  iou_threshold, score_threshold, max_output, window, chunk,
+                  pool.data_ptr(), num.data_ptr(), ob.data_ptr(),
+                  os_.data_ptr(), ol.data_ptr(),
+                  what="nms_argmax_ml_kernel (kernel A)")
     return num, ob, os_, ol
 
 
 def nms_single_label(boxes, scores, iou_threshold, score_threshold,
                       max_output):
     """efficient_nms_scan(multi_label=False): kernel I or its plain
-    version.  Its launches are counted on this function."""
-    single = boxes.dim() == 2
-    if single:
-        boxes, scores = boxes[None], scores[None]
-    boxes = boxes.to(torch.float32).contiguous()
-    scores = scores.to(torch.float32).contiguous()
-    b, n, _ = scores.shape
-    if boxes.shape != (b, n, 4):
-        raise ValueError(f"boxes {tuple(boxes.shape)} vs scores "
-                         f"{tuple(scores.shape)}")
-    out = torch.ops.mt.nms_argmax(boxes, scores, iou_threshold,
-                                  score_threshold, max_output, NMS_WINDOW,
-                                  NMS_CHUNK)
-    if single:
-        out = tuple(o[0] for o in out)
-    return out
+    version.  Its launches are counted under this function's name."""
+    return efficient_nms_scan(boxes, scores, iou_threshold=iou_threshold,
+                              score_threshold=score_threshold,
+                              max_output=max_output, multi_label=False)
 
 
 def nms_argmax_op_plain(boxes, scores, iou_threshold, score_threshold,
@@ -290,8 +247,7 @@ def nms_argmax_kernel(boxes, scores, iou_threshold, score_threshold,
     and scores (B, N, C) f32 contiguous -> the outputs of
     `nms_argmax_plain` on `single_label_candidates(boxes, scores)`, which
     the kernel takes itself (each anchor's best class, the class-band
-    side).  Any number of anchors is taken; window and chunk as A's.
-    Counted on nms_single_label."""
+    side).  Any number of anchors is taken; window and chunk as A's."""
     _build.require_cuda(boxes, scores)
     window, chunk = _window_chunk(window, chunk)
     if score_threshold < -1.0:
@@ -304,17 +260,13 @@ def nms_argmax_kernel(boxes, scores, iou_threshold, score_threshold,
     os_ = torch.empty(b, max_output, dtype=torch.float32, device=dev)
     ol = torch.empty(b, max_output, dtype=torch.int32, device=dev)
     pool = torch.empty(b, n, dtype=torch.int64, device=dev)
-    rc = _launcher("launch_nms_argmax")(
-        boxes.data_ptr(), scores.data_ptr(), b, n, c, iou_threshold,
-        score_threshold, max_output, window, chunk, pool.data_ptr(),
-        num.data_ptr(), ob.data_ptr(), os_.data_ptr(), ol.data_ptr(),
-        _build.stream_ptr())
-    nms_single_label.launches += 1
-    _build.check(_build.lib("nms"), rc, "nms_argmax_kernel (kernel I)")
+    _build.launch("nms", "launch_nms_argmax", _ARGMAX_ARGS,
+                  boxes.data_ptr(), scores.data_ptr(), b, n, c,
+                  iou_threshold, score_threshold, max_output, window, chunk,
+                  pool.data_ptr(), num.data_ptr(), ob.data_ptr(),
+                  os_.data_ptr(), ol.data_ptr(),
+                  what="nms_argmax_kernel (kernel I)")
     return num, ob, os_, ol
-
-
-nms_single_label.launches = 0
 
 
 def mask_scan_plain(boxes: torch.Tensor, pri: torch.Tensor,
@@ -362,23 +314,15 @@ def mask_scan_op_plain(boxes, scores, valid, pri, iou_threshold,
     return mask_scan_plain(boxes, pri, iou_threshold)
 
 
-def mask_scan_op_kernel(boxes, scores, valid, pri, iou_threshold,
-                        score_threshold, window, chunk):
-    """Operator mt::mask_scan on CUDA tensors: `mask_scan_kernel`."""
-    return mask_scan_kernel(boxes, scores, valid, iou_threshold,
-                            score_threshold, pri=pri, window=window,
-                            chunk=chunk)
-
-
-def mask_scan_kernel(boxes: torch.Tensor, scores, valid,
-                     iou_threshold: float, score_threshold: float, *,
-                     pri=None, window: int | None = None,
+def mask_scan_kernel(boxes: torch.Tensor, scores, valid, pri,
+                     iou_threshold: float, score_threshold: float,
+                     window: int | None = None,
                      chunk: int | None = None) -> torch.Tensor:
-    """Kernel B on CUDA tensors: boxes (B, T, 4) f32 contiguous, and either
-    scores (B, T) f32 and valid (B, T) bool, whose priorities the kernel
-    makes as `mask_priority` does for f32 inputs, or `pri` (B, T) f32 made
-    by the caller (scores and valid None) -> keep (B, T) bool.  Any T is
-    taken; window and chunk as A's.  Counted on area_sorted_nms."""
+    """Kernel B on CUDA tensors (operator mt::mask_scan): boxes (B, T, 4)
+    f32 contiguous, and either scores (B, T) f32 and valid (B, T) bool,
+    whose priorities the kernel makes as `mask_priority` does for f32
+    inputs, or `pri` (B, T) f32 made by the caller (scores and valid None)
+    -> keep (B, T) bool.  Any T is taken; window and chunk as A's."""
     _build.require_cuda(*(v for v in (boxes, scores, valid, pri)
                           if v is not None))
     if (pri is None) == (scores is None or valid is None):
@@ -391,13 +335,11 @@ def mask_scan_kernel(boxes: torch.Tensor, scores, valid,
     kept = torch.empty(b, t, 4, dtype=torch.float32, device=dev)
     ptrs = (None, None, pri.data_ptr()) if pri is not None else (
         scores.data_ptr(), valid.data_ptr(), None)
-    rc = _launcher("launch_mask_scan")(
-        boxes.data_ptr(), *ptrs, b, t, iou_threshold, score_threshold,
-        window, chunk, pool.data_ptr(), kept.data_ptr(),
-        keep.data_ptr(),
-        _build.stream_ptr())
-    area_sorted_nms.launches += 1
-    _build.check(_build.lib("nms"), rc, "mask_scan_kernel (kernel B)")
+    _build.launch("nms", "launch_mask_scan", _MASK_SCAN_ARGS,
+                  boxes.data_ptr(), *ptrs, b, t, iou_threshold,
+                  score_threshold, window, chunk, pool.data_ptr(),
+                  kept.data_ptr(), keep.data_ptr(),
+                  what="mask_scan_kernel (kernel B)")
     return keep
 
 
@@ -428,6 +370,3 @@ def area_sorted_nms(boxes: torch.Tensor, scores: torch.Tensor,
             mask_priority(boxes, scores, valid, score_threshold),
             iou_threshold, score_threshold, NMS_WINDOW, NMS_CHUNK)
     return keep[0] if single else keep
-
-
-area_sorted_nms.launches = 0

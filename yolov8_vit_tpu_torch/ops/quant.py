@@ -49,6 +49,11 @@ MLP_AND_ATTN_SUFFIXES = MLP_SUFFIXES + ("qkv", "proj")
 # activation dtype codes of the kernels' C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the C entry points' arguments before the stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_QUANT_MLP_ARGS = (_P, _P) + (_I,) * 5 + (_P, _P, _F) + (_P,) * 12
+_QUANT_DENSE_ARGS = (_P,) + (_I,) * 4 + (_P,) * 3 + (_I,) + (_P,) * 3
+
 
 def round_up16(v: int) -> int:
     return -(-v // 16) * 16
@@ -181,10 +186,10 @@ def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps,
                 out=None):
     """The launch chain of kernels C (ln = (scale, bias)) and H (ln =
     None) on (M, D) rows; w1t (Hp, Dp) and w2t (Dp, Hp) from
-    `transposed_i8`.  Returns the library, the launch's return code and
-    the (M, Dp) rows of the result (padded past D where D % 16).  The rows
-    go into `out` where given (an (M, D) contiguous tensor of xm's dtype
-    and device, with D % 16 == 0), else into a new tensor."""
+    `transposed_i8`.  Returns the (M, Dp) rows of the result (padded past
+    D where D % 16).  The rows go into `out` where given (an (M, D)
+    contiguous tensor of xm's dtype and device, with D % 16 == 0), else
+    into a new tensor."""
     m, d = xm.shape
     hp, dp = w1t.shape
     if xm.dtype not in DTYPE_CODES or dp != round_up16(d):
@@ -209,22 +214,16 @@ def _launch_mlp(what, xm, res, ln, w1t, s1, b1, w2t, s2, b2, ln_eps,
     amax = torch.empty(m, dtype=torch.int32, device=dev)   # zeroed on card
     aq = torch.empty(m, hp, dtype=torch.int8, device=dev)
     sa = torch.empty(m, dtype=f32, device=dev)
-    so = _build.lib("quant_mlp")
-    fn = so.launch_quant_mlp
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                       + [ctypes.c_void_p] * 13)
-        fn.restype = ctypes.c_int
     ln_p = (None, None) if ln is None else (ln[0].data_ptr(),
                                             ln[1].data_ptr())
-    rc = fn(xp.data_ptr(), rp.data_ptr(), DTYPE_CODES[xm.dtype], m, d, dp,
-            hp, ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(), s1.data_ptr(),
-            b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-            hq.data_ptr(), sx.data_ptr(), amax.data_ptr(), aq.data_ptr(),
-            sa.data_ptr(), out.data_ptr(), _build.stream_ptr())
-    return so, rc, out
+    _build.launch("quant_mlp", "launch_quant_mlp", _QUANT_MLP_ARGS,
+                  xp.data_ptr(), rp.data_ptr(), DTYPE_CODES[xm.dtype], m, d,
+                  dp, hp, ln_p[0], ln_p[1], ln_eps, w1t.data_ptr(),
+                  s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(),
+                  b2.data_ptr(), hq.data_ptr(), sx.data_ptr(),
+                  amax.data_ptr(), aq.data_ptr(), sa.data_ptr(),
+                  out.data_ptr(), what=what)
+    return out
 
 
 def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
@@ -245,29 +244,15 @@ def quant_mlp_ln_fused(x: torch.Tensor, ln_scale, ln_bias, w1_i8, s1, b1,
         vecs[5], ln_eps, w1_t, w2_t).reshape(*lead, d)
 
 
-def quant_mlp_ln_op_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2,
-                          b2, ln_eps, w1_t, w2_t):
-    """Operator mt::quant_mlp_ln on the CPU (the transposed copies are the
-    kernel's)."""
-    return quant_mlp_ln_plain(x, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2,
-                              b2, ln_eps)
-
-
 def quant_mlp_ln_kernel(xm, ln_scale, ln_bias, w1_i8, s1, b1, w2_i8, s2, b2,
                         ln_eps, w1_t, w2_t) -> torch.Tensor:
-    """Kernel C on CUDA rows (M, D) (operator mt::quant_mlp_ln).  Counted
-    on quant_mlp_ln_fused."""
+    """Kernel C on CUDA rows (M, D) (operator mt::quant_mlp_ln)."""
     _build.require_cuda(xm, w1_i8, w2_i8, ln_scale, ln_bias, s1, b1, s2, b2)
     d = xm.shape[1]
-    so, rc, out = _launch_mlp(
+    out = _launch_mlp(
         "kernel C", xm, xm, (ln_scale, ln_bias), transposed_i8(w1_i8, w1_t),
         s1, b1, transposed_i8(w2_i8, w2_t), s2, b2, ln_eps)
-    quant_mlp_ln_fused.launches += 1
-    _build.check(so, rc, "quant_mlp_ln (kernel C)")
     return out[:, :d].contiguous()
-
-
-quant_mlp_ln_fused.launches = 0
 
 
 def quant_mlp_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2) -> torch.Tensor:
@@ -297,31 +282,19 @@ def quant_mlp_fused(h: torch.Tensor, residual: torch.Tensor, w1_i8, s1, b1,
                                   w2_t).reshape(*lead, d)
 
 
-def quant_mlp_op_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2, w1_t,
-                       w2_t):
-    """Operator mt::quant_mlp on the CPU."""
-    return quant_mlp_plain(h, residual, w1_i8, s1, b1, w2_i8, s2, b2)
-
-
 def quant_mlp_kernel(hm, rm, w1_i8, s1, b1, w2_i8, s2, b2, w1_t,
                      w2_t) -> torch.Tensor:
-    """Kernel H on CUDA rows (M, D) (operator mt::quant_mlp).  Counted on
-    quant_mlp_fused."""
+    """Kernel H on CUDA rows (M, D) (operator mt::quant_mlp)."""
     _build.require_cuda(hm, rm, w1_i8, w2_i8, s1, b1, s2, b2)
     if rm.dtype != hm.dtype or rm.shape != hm.shape:
         raise ValueError(f"kernel H takes h and residual of one shape and "
                          f"dtype; got {tuple(hm.shape)} {hm.dtype} and "
                          f"{tuple(rm.shape)} {rm.dtype}")
     d = hm.shape[1]
-    so, rc, out = _launch_mlp(
+    out = _launch_mlp(
         "kernel H", hm, rm, None, transposed_i8(w1_i8, w1_t), s1, b1,
         transposed_i8(w2_i8, w2_t), s2, b2, 0.0)
-    quant_mlp_fused.launches += 1
-    _build.check(so, rc, "quant_mlp (kernel H)")
     return out[:, :d].contiguous()
-
-
-quant_mlp_fused.launches = 0
 
 
 def quant_dense_plain(x, w_i8, w_scale, bias, silu: bool = False):
@@ -352,14 +325,8 @@ def quant_dense_fused(x: torch.Tensor, w_i8: torch.Tensor,
                                     w_t).reshape(*lead, n)
 
 
-def quant_dense_op_plain(x, w_i8, w_scale, bias, silu, w_t):
-    """Operator mt::quant_dense on the CPU."""
-    return quant_dense_plain(x, w_i8, w_scale, bias, silu)
-
-
 def quant_dense_kernel(xm, w_i8, sw, b, silu, w_t) -> torch.Tensor:
-    """Kernel G on CUDA rows (M, K) (operator mt::quant_dense).  Counted
-    on quant_dense_fused."""
+    """Kernel G on CUDA rows (M, K) (operator mt::quant_dense)."""
     _build.require_cuda(xm, w_i8, sw, b)
     if xm.dtype not in DTYPE_CODES:
         raise ValueError(f"kernel G takes f32/bf16 rows; got {xm.dtype}")
@@ -374,22 +341,12 @@ def quant_dense_kernel(xm, w_i8, sw, b, silu, w_t) -> torch.Tensor:
     xq = torch.empty(m, kp, dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=f32, device=dev)
     out = torch.empty(m, np_, dtype=xm.dtype, device=dev)
-    so = _build.lib("quant_mlp")
-    fn = so.launch_quant_dense
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 4)
-        fn.restype = ctypes.c_int
-    rc = fn(xm.data_ptr(), DTYPE_CODES[xm.dtype], m, kp, np_, wt.data_ptr(),
-            sw.data_ptr(), b.data_ptr(), int(bool(silu)), xq.data_ptr(),
-            sx.data_ptr(), out.data_ptr(), _build.stream_ptr())
-    quant_dense_fused.launches += 1
-    _build.check(so, rc, "quant_dense (kernel G)")
+    _build.launch("quant_mlp", "launch_quant_dense", _QUANT_DENSE_ARGS,
+                  xm.data_ptr(), DTYPE_CODES[xm.dtype], m, kp, np_,
+                  wt.data_ptr(), sw.data_ptr(), b.data_ptr(), int(bool(silu)),
+                  xq.data_ptr(), sx.data_ptr(), out.data_ptr(),
+                  what="quant_dense (kernel G)")
     return out[:, :n].contiguous()
-
-
-quant_dense_fused.launches = 0
 
 
 def prequantize_tree(params, match_suffixes=MLP_SUFFIXES):
