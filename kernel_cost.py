@@ -7,6 +7,7 @@ compared in one call.  From the repository root:
     python3 kernel_cost.py steps [--tree OTHER_TREE]
     python3 kernel_cost.py serve [--tree OTHER_TREE]
     python3 kernel_cost.py window [--tree OTHER_TREE]
+    python3 kernel_cost.py int8 [--tree OTHER_TREE]
 
 Both build chip_smoke.py phase 5's pipeline (YOLOv8-s at 640 x 640 and
 ViT-B/16 w8a, bf16, seed-0 weights with the head fitted to cover scenes)
@@ -60,6 +61,19 @@ chip_smoke.py's `check_window_attn` checks and times it: SwinV2-B/256's
 block shapes for 64 crops, bf16, against the plain version; the kernel,
 its plain version and torch's SDPA on the same windows beside each
 shape's bound, and the sums over one forward's 24 blocks.
+
+`int8`: kernels C, D, G and H, the callers of the int8 GEMM
+(csrc/int8_common.cuh), on seeded bf16 inputs at ViT-B/16 widths: C at
+64 x 197 rows (a bulk step's crops) and 512 x 197 (the crowd cell's
+ladder chunk), H at 64 x 197, D at 64 and 512 crops of 197 tokens and
+64 of 785, G at 64 x 197 rows on (768, 2304), (768, 768), (768, 3072)
+and (3072, 768), and with SiLU at (819200, 64) x (64, 64).  Each
+output's sha256 (the first 16 hex digits; C also its fc1 int8 codes and
+row scales, from the scratch of a direct launch), so that two trees'
+outputs compare bit for bit; the largest difference from the plain
+version (C, D, H); the wrapper's time with CUDA events (20 calls); C's
+and D's device time a launch of each part with torch.profiler
+(chip_smoke.C_PARTS, D_PARTS).
 
 A tree from before `utils/profiling.py` is timed with this tree's copy of
 that module (chip_smoke.py's `_time_ms` and `profile_parts` call its
@@ -374,6 +388,117 @@ def window(args) -> dict:
                                                      "bound_ms")}}
 
 
+# ---- int8 ------------------------------------------------------------------
+def _digest(t) -> str:
+    import hashlib
+    b = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(b).hexdigest()[:16]
+
+
+def _max_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max())
+
+
+def int8(args) -> dict:
+    from yolov8_vit_tpu_torch import _build, ops
+    from yolov8_vit_tpu_torch.ops import quant
+    from yolov8_vit_tpu_torch.ops.attention import attn_block_i8_plain
+    from yolov8_vit_tpu_torch.ops.quant import (quant_dense_plain,
+                                                quant_mlp_ln_plain,
+                                                quant_mlp_plain,
+                                                quantize_weight)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(20)
+    d, hid = 768, 3072
+
+    def wq(fin, fout):
+        q, s = quantize_weight(torch.randn(fin, fout, generator=g)
+                               * fin ** -0.5)
+        return q.to(dev), s.to(dev), (0.02 * torch.randn(fout, generator=g)
+                                      ).to(dev)
+
+    def ln():
+        return ((1 + 0.1 * torch.randn(d, generator=g)).to(dev),
+                (0.1 * torch.randn(d, generator=g)).to(dev))
+
+    def rows(m, width=d):
+        return torch.randn(m, width, generator=g).to(dev, bf16)
+
+    def timed(call, ref=None, parts=None):
+        got = call()
+        rep = {"digest": _digest(got), "ms": cs._time_ms(call, 20)}
+        if ref is not None:
+            rep["max_err"] = _max_err(got, ref())
+        if parts is not None:
+            rep["parts_ms"] = cs.profile_parts(torch, call, parts)
+        return rep
+
+    out = {}
+    lns, lnb = ln()
+    w1, s1, b1 = wq(d, hid)
+    w2, s2, b2 = wq(hid, d)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    for crops in (64, 512):
+        x = rows(crops * 197)
+        args = (x, lns, lnb, w1, s1, b1, w2, s2, b2)
+        rep = timed(lambda: ops.quant_mlp_ln_fused(*args, w1_t=w1t,
+                                                   w2_t=w2t),
+                    lambda: quant_mlp_ln_plain(*args), cs.C_PARTS)
+        # fc1's codes and row scales: the chain's scratch, launched directly
+        m = x.shape[0]
+        hq = torch.empty(m, d, dtype=torch.int8, device=dev)
+        sx = torch.empty(m, device=dev)
+        amax = torch.empty(m, dtype=torch.int32, device=dev)
+        aq = torch.empty(m, hid, dtype=torch.int8, device=dev)
+        sa = torch.empty(m, device=dev)
+        y = torch.empty_like(x)
+        _build.launch("quant_mlp", "launch_quant_mlp", quant._QUANT_MLP_ARGS,
+                      x.data_ptr(), x.data_ptr(), 1, m, d, d, hid,
+                      lns.data_ptr(), lnb.data_ptr(), 1e-6, w1t.data_ptr(),
+                      s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+                      s2.data_ptr(), b2.data_ptr(), hq.data_ptr(),
+                      sx.data_ptr(), amax.data_ptr(), aq.data_ptr(),
+                      sa.data_ptr(), y.data_ptr(), what="kernel C")
+        rep.update(fc1_codes=_digest(aq), fc1_scales=_digest(sa))
+        out[f"C_{crops}x197"] = rep
+        del args, x, hq, aq, y
+        torch.cuda.empty_cache()
+    h, res = rows(64 * 197), rows(64 * 197)
+    hargs = (h, res, w1, s1, b1, w2, s2, b2)
+    out["H_64x197"] = timed(lambda: ops.quant_mlp_fused(*hargs, w1_t=w1t,
+                                                        w2_t=w2t),
+                            lambda: quant_mlp_plain(*hargs))
+    del h, res, hargs
+    lns, lnb = ln()
+    wqkv, sq, bq = wq(d, 3 * d)
+    wp, sp, bp = wq(d, d)
+    wts = dict(heads=12, wqkv_t=wqkv.t().contiguous(),
+               wproj_t=wp.t().contiguous())
+    for crops, t in ((64, 197), (512, 197), (64, 785)):
+        xa = torch.randn(crops, t, d, generator=g).to(dev, bf16)
+        dargs = (xa, lns, lnb, wqkv, sq, bq, wp, sp, bp)
+        out[f"D_{crops}x{t}"] = timed(
+            lambda: ops.fused_attention_block_i8(*dargs, **wts),
+            lambda: attn_block_i8_plain(*dargs, heads=12), cs.D_PARTS)
+        del xa, dargs
+        torch.cuda.empty_cache()
+    for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+        x = rows(64 * 197, k)
+        w, s, b = wq(k, n)
+        wt = w.t().contiguous()
+        out[f"G_{k}x{n}"] = timed(
+            lambda: ops.quant_dense_fused(x, w, s, b, w_t=wt))
+        out[f"G_{k}x{n}"]["equal_plain"] = bool(torch.equal(
+            ops.quant_dense_fused(x, w, s, b, w_t=wt),
+            quant_dense_plain(x, w, s, b)))
+    x = rows(819200, 64)
+    w, s, b = wq(64, 64)
+    wt = w.t().contiguous()
+    out["G_silu_64x64"] = timed(
+        lambda: ops.quant_dense_fused(x, w, s, b, silu=True, w_t=wt))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="kernels", required=True)
@@ -386,7 +511,9 @@ def main() -> int:
     p_serve = sub.add_parser("serve", help="phase 5's step, decode and "
                              "POST / from files")
     p_window = sub.add_parser("window", help="SwinV2's window attention")
-    for p in (p_nms, p_region, p_steps, p_serve, p_window):
+    p_int8 = sub.add_parser("int8", help="kernels C, D, G and H (the int8 "
+                            "GEMM's callers)")
+    for p in (p_nms, p_region, p_steps, p_serve, p_window, p_int8):
         p.add_argument("--tree", metavar="DIR",
                        help="the tree whose package is timed")
     args = ap.parse_args()
@@ -398,7 +525,7 @@ def main() -> int:
     import yolov8_vit_tpu_torch as pkg
     _profiling_shim()
     run = {"nms": nms, "region": region, "steps": steps,
-           "serve": serve, "window": window}[args.kernels]
+           "serve": serve, "window": window, "int8": int8}[args.kernels]
     res = {"package": os.path.dirname(pkg.__file__), **run(args)}
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

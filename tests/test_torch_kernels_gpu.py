@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from yolov8_vit_tpu_torch import ops
+from yolov8_vit_tpu_torch import _build, ops
 from yolov8_vit_tpu_torch.ops.attention import (attn_block_i8_plain,
                                                 flash_attention_plain,
                                                 fused_attention_block_plain)
@@ -598,9 +598,10 @@ def test_kernel_j_silu_table_matches_plain(dev):
 
 
 # ---- C, D, G, H at ViT-B widths on the int8 wgmma GEMM ------------------------
-# rows of the main path: one crop, three crops (a ragged 256-row tile), and
-# the B/16 path's 64 crops of 197 tokens
-_VIT_ROWS = (197, 3 * 197, 64 * 197)
+# rows of the main path: one crop, three crops (a ragged 256-row tile), the
+# B/16 path's 64 crops of 197 tokens and the crowd cell's ladder chunk of
+# 512 crops
+_VIT_ROWS = (197, 3 * 197, 64 * 197, 512 * 197)
 _VIT_D, _VIT_HID = 768, 3072
 
 
@@ -633,7 +634,7 @@ def test_kernel_h_matches_plain_at_vit_b(dev, dtype, m):
 
 
 @pytest.mark.parametrize("crops,t", [(1, 197), (3, 197), (64, 197),
-                                     (8, 785)])
+                                     (8, 785), (512, 197)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_d_matches_plain_at_vit_b(dev, dtype, crops, t):
     g = _gen(14)
@@ -659,11 +660,13 @@ def test_kernel_g_bit_for_bit_at_vit_b(dev, dtype, k, n, m):
                                          .abs().max()))
 
 
-@pytest.mark.parametrize("m", [197, 3 * 197])
+@pytest.mark.parametrize("m", [197, 3 * 197, 300])
 def test_kernel_c_writes_no_row_past_m(dev, m):
-    """The 256-row tiles past m hold zero rows of the activations, whose
-    fc1 epilogue gives gelu(b1) != 0: the kernel must store none of them.
-    The output is a view whose tail (one whole row tile) holds a sentinel."""
+    """The rows of a tile past m (a CTA's 128, a cluster's 256; at m = 300
+    one CTA's rows lie wholly past m) hold zero rows of the activations,
+    whose fc1 epilogue gives gelu(b1) != 0: the kernel must store none of
+    them.  The output is a view whose tail (one whole cluster tile) holds a
+    sentinel."""
     g = _gen(16)
     x = torch.randn(m, _VIT_D, generator=g).to(dev, torch.bfloat16)
     lns, lnb = _vit_ln(g, dev)
@@ -677,6 +680,98 @@ def test_kernel_c_writes_no_row_past_m(dev, m):
     assert bool((buf[m:] == 7.0).all())
     _close(out, quant_mlp_ln_plain(x, lns, lnb, w1, s1, b1, w2, s2, b2),
            torch.bfloat16, int8=True)
+
+
+# ---- the int8 GEMM's persistent walk -----------------------------------------
+# (m, n, k) against its 256 x 128 cluster tiles and the card's 66 clusters
+# of two CTAs: fewer tiles than clusters, one wave (66 tiles), and several
+# waves with a ragged last row tile, at fc2 / proj's n = 768 (a last wave
+# part full), qkv's 2304 and the SiLU layer's 64; k of one k-tile, six and
+# 24
+_WALK = [(300, 256, 128), (11 * 256, 768, 768), (12608 + 77, 768, 3072),
+         (12608, 2304, 768), (512 * 197, 64, 64)]
+
+
+@pytest.mark.parametrize("m,n,k", _WALK)
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemm_walk_g_bit_for_bit(dev, dtype, silu, m, n, k):
+    """Kernel G, the bias and SiLU epilogues, bit for bit against the plain
+    version at every tile count of the walk."""
+    g = _gen(21)
+    x = torch.randn(m, k, generator=g).to(dev, dtype)
+    w, s, b = _w(g, k, n, dev)
+    got = ops.quant_dense_fused(x, w, s, b, silu=silu,
+                                w_t=w.t().contiguous())
+    ref = quant_dense_plain(x, w, s, b, silu=silu)
+    assert torch.equal(got, ref), (int((got != ref).sum()),
+                                   float((got.float() - ref.float())
+                                         .abs().max()))
+
+
+@pytest.mark.parametrize("m", [300, 11 * 256, 12608 + 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemm_walk_c_h_match_plain(dev, dtype, m):
+    """The amax, quantize and residual epilogues (kernels C and H at ViT-B
+    widths: fc1 24 column tiles wide, fc2 6) at the walk's row counts."""
+    g = _gen(23)
+    x = torch.randn(m, _VIT_D, generator=g).to(dev, dtype)
+    res = torch.randn(m, _VIT_D, generator=g).to(dev, dtype)
+    w = (*_w(g, _VIT_D, _VIT_HID, dev), *_w(g, _VIT_HID, _VIT_D, dev))
+    lns, lnb = _vit_ln(g, dev)
+    _close(ops.quant_mlp_ln_fused(x, lns, lnb, *w),
+           quant_mlp_ln_plain(x, lns, lnb, *w), dtype, int8=True)
+    _close(ops.quant_mlp_fused(x, res, *w), quant_mlp_plain(x, res, *w),
+           dtype, int8=True)
+
+
+def _fc1_weights(g, kind, dev):
+    """fc1's weights: seeded ("random"); scaled so that every row's fc1 is
+    below 1/2 ("small"); or each column repeated in the next ("tied"), so
+    that every value of a row appears twice."""
+    w1, s1, b1 = _w(g, _VIT_D, _VIT_HID, dev)
+    if kind == "small":
+        s1 = s1 * 1e-3
+        b1 = b1 * 1e-3
+    elif kind == "tied":
+        w1, s1, b1 = (t[..., ::2].repeat_interleave(2, -1).contiguous()
+                      for t in (w1, s1, b1))
+    return w1, s1, b1
+
+
+@pytest.mark.parametrize("weights", ["random", "small", "tied"])
+@pytest.mark.parametrize("m", [197, 12608 + 77, 512 * 197])
+def test_kernel_c_fc1_codes_are_plain_bit_for_bit(dev, m, weights):
+    """C's int8 fc1 codes and row scales (the chain's scratch) equal the
+    plain quantize_act(gelu(fc1)) bit for bit, fc1 the exact int8 product
+    of the chain's own quantized LN rows rescaled in f32: the amax pass's atomic maxima and the quantize
+    pass's codes lose nothing to the walk, on seeded weights and on rows
+    of ties or of values below 1/2."""
+    g = _gen(24)
+    x = torch.randn(m, _VIT_D, generator=g).to(dev, torch.bfloat16)
+    lns, lnb = _vit_ln(g, dev)
+    w1, s1, b1 = _fc1_weights(g, weights, dev)
+    w2, s2, b2 = _w(g, _VIT_HID, _VIT_D, dev)
+    i8, f32 = torch.int8, torch.float32
+    hq = torch.empty(m, _VIT_D, dtype=i8, device=dev)
+    aq = torch.empty(m, _VIT_HID, dtype=i8, device=dev)
+    sx, sa = (torch.empty(m, dtype=f32, device=dev) for _ in range(2))
+    amax = torch.empty(m, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    _build.launch("quant_mlp", "launch_quant_mlp", quant._QUANT_MLP_ARGS,
+                  x.data_ptr(), x.data_ptr(), quant.DTYPE_CODES[x.dtype], m,
+                  _VIT_D, _VIT_D, _VIT_HID, lns.data_ptr(), lnb.data_ptr(),
+                  1e-6, w1t.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                  w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+                  hq.data_ptr(), sx.data_ptr(), amax.data_ptr(),
+                  aq.data_ptr(), sa.data_ptr(), out.data_ptr(),
+                  what="kernel C")
+    fc1 = (quant.int8_matmul(hq, w1) * sx[:, None] * s1[None, :]
+           + b1[None, :])
+    ref_q, ref_s = quant.quantize_act(quant.gelu_tanh(fc1))
+    assert torch.equal(sa, ref_s[:, 0])
+    assert torch.equal(aq, ref_q), int((aq != ref_q).sum())
 
 
 def test_detector_train_step_card_matches_cpu(dev):

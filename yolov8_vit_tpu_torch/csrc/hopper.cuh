@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the kernels of attention.cu and
-// quant_mlp.cu: mbarriers, TMA tile loads and stores, wgmma (bf16 and
-// int8) and its shared-memory descriptors, and the host-side encoding of
-// TMA tensor maps.  Raw PTX, no CUTLASS, so the libraries still build in
-// seconds.
+// quant_mlp.cu: mbarriers, thread block clusters, TMA tile loads
+// (multicast too) and stores, wgmma (bf16 and int8) and its shared-memory
+// descriptors, and the host-side encoding of TMA tensor maps.  Raw PTX,
+// no CUTLASS, so the libraries still build in seconds.
 //
 // Swizzle: a tile whose rows are R bytes (R = 32, 64 or 128) is loaded by
 // TMA with the R-byte swizzle and read by wgmma with the same mode, from
@@ -76,6 +76,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
     if (global_ns() - t0 > kMbarTimeoutNs) __trap();
 }
 
+// ---- thread block clusters ------------------------------------------------
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+               "memory");
+}
+
+// one arrival on the mbarrier at `bar`'s offset in CTA `cta` of the
+// cluster, a release at CTA scope: it orders this thread's own accesses
+// (a stage's reads were wgmma's, retired by the wait before it), and a
+// release at cluster scope (a fence across the cluster) cost more than
+// half of a GEMM's time (mlp_block.cu)
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, unsigned cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(smem_addr(bar)), "r"(cta) : "memory");
+}
+
+// one arrival on the mbarrier at `bar`'s offset in each of the cluster's
+// kCtas CTAs: a consumer warp's release of a ring stage that the
+// producers of every CTA fill (multicast)
+template <int kCtas>
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar) {
+#pragma unroll
+  for (unsigned c = 0; c < kCtas; ++c) mbar_arrive_at(bar, c);
+}
+
 // ---- TMA ------------------------------------------------------------------
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
@@ -84,6 +119,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the box at (c0, c1) into `dst` of every CTA of the cluster in `mask`,
+// completing on the mbarrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -137,9 +187,12 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
 
 // commit the thread's bulk stores, and wait until they have read shared
 // memory (which may then be reused or released)
-__device__ __forceinline__ void tma_store_commit_and_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n"
-               "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -486,6 +539,51 @@ int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                     const uint32_t* box) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank,
                     dims, strides, box);
+}
+
+// ---- host: persistent grids of clusters -----------------------------------
+// Launches kKernel(args...) on `stream` as a persistent grid of kCluster-CTA
+// clusters: one cluster a tile, at most as many as fit the card at once.
+// The first call sets the kernel's dynamic shared memory and asks the
+// occupancy calculator for that count, which is kept.  Returns a CUDA
+// error code.
+template <auto kKernel, int kCluster, typename... Args>
+int launch_clustered(int tiles, int threads, int smem, cudaStream_t stream,
+                     const Args&... args) {
+  static int clusters_max = 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters_max == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cfg.gridDim = dim3(kCluster * sms);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(
+            &n, reinterpret_cast<const void*>(kKernel), &cfg) != cudaSuccess
+        || n < 1) {
+      cudaGetLastError();
+      return static_cast<int>(cudaErrorLaunchOutOfResources);
+    }
+    clusters_max = n;
+  }
+  cfg.gridDim = dim3(kCluster * (tiles < clusters_max ? tiles : clusters_max));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kKernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dynamic shared memory rounded up to the 1024-byte alignment of the

@@ -105,54 +105,6 @@ struct MlpGemm {
   bf16* out;                      // (m, n)
 };
 
-// ---- cluster primitives --------------------------------------------------
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster (release / acquire)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
-               "memory");
-}
-
-// one arrival on the mbarrier at `bar`'s offset in CTA `cta` of the
-// cluster, a release at CTA scope: it orders this thread's own accesses
-// (the stage's reads were wgmma's, retired by the wait before it), and a
-// release at cluster scope (a fence across the cluster) cost more than
-// half of the GEMM's time
-__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, unsigned cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
-      :: "r"(smem_addr(bar)), "r"(cta) : "memory");
-}
-
-// a consumer warp's release of a stage: one arrival on its empty barrier
-// in each CTA of the cluster
-__device__ __forceinline__ void release_stage(uint64_t* bar) {
-#pragma unroll
-  for (unsigned c = 0; c < kCluster; ++c) mbar_arrive_at(bar, c);
-}
-
-// the box at (c0, c1) into `dst` of every CTA in `mask`, completing on the
-// mbarrier at `bar`'s offset in each
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
-                                                      const CUtensorMap* map,
-                                                      uint64_t* bar, int c0,
-                                                      int c1,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
-      : "memory");
-}
-
 // D (64 x 192, f32) += A (64 x 16, bf16, K-major) B (16 x 192, bf16,
 // MN-major), both from shared memory; D: 96 floats a thread, in the layout
 // of hopper.cuh's wgmma_ss_n128 repeated over 24 column groups
@@ -615,11 +567,11 @@ mlp_gemm_kernel(const __grid_constant__ CUtensorMap ta,
         wgmma_commit();
         wgmma_wait<1>();                 // k-tile it - 1 is done with its stage
         if (kt > 0 && lane == 0)
-          release_stage(&empty[(it - 1) % kStages]);
+          mbar_arrive_cluster<kCluster>(&empty[(it - 1) % kStages]);
       }
       wgmma_wait<0>();
       fence_regs<kBN / 2>(acc);
-      if (lane == 0) release_stage(&empty[(it - 1) % kStages]);
+      if (lane == 0) mbar_arrive_cluster<kCluster>(&empty[(it - 1) % kStages]);
       // the epilogue warps have read the last tile's products
       mbar_wait(&drained[wg], (n & 1) ^ 1);
       stage_products<kEpi>(acc, staging + wg * C::kWgStaging);
@@ -631,45 +583,10 @@ mlp_gemm_kernel(const __grid_constant__ CUtensorMap ta,
   cluster_sync();
 }
 
-// the clusters of mlp_gemm_kernel<kEpi> that fit the card at once
-template <int kEpi>
-int resident_clusters() {
-  using C = Cfg<kEpi>;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(kCluster * 132);
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(
-          &n, reinterpret_cast<const void*>(mlp_gemm_kernel<kEpi>), &cfg)
-          != cudaSuccess || n < 1)
-    return 0;
-  return n;
-}
-
 template <int kEpi>
 int gemm(const void* a, const void* w, int m, int n, int k, const void* bias,
          const void* res, void* out, cudaStream_t st) {
   using C = Cfg<kEpi>;
-  static int clusters_max = 0;
-  if (clusters_max == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mlp_gemm_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    clusters_max = resident_clusters<kEpi>();
-    if (clusters_max == 0) {
-      cudaGetLastError();
-      return static_cast<int>(cudaErrorLaunchOutOfResources);
-    }
-  }
   CUtensorMap ta, tw;
   const uint64_t adims[2] = {static_cast<uint64_t>(k),
                              static_cast<uint64_t>(m)};
@@ -692,23 +609,8 @@ int gemm(const void* a, const void* w, int m, int n, int k, const void* bias,
   p.bias = static_cast<const bf16*>(bias);
   p.res = static_cast<const bf16*>(res);
   p.out = static_cast<bf16*>(out);
-  const int tiles = p.m_tiles * p.n_tiles;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(kCluster * (tiles < clusters_max ? tiles : clusters_max));
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t ce = cudaLaunchKernelEx(&cfg, mlp_gemm_kernel<kEpi>, ta,
-                                            tw, p);
-  if (ce != cudaSuccess) return static_cast<int>(ce);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clustered<mlp_gemm_kernel<kEpi>, kCluster>(
+      p.m_tiles * p.n_tiles, C::kThreads, C::kSmem, st, ta, tw, p);
 }
 
 bool aligned(const void* p, uintptr_t a) {

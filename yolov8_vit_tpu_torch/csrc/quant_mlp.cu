@@ -18,7 +18,14 @@
 // Design: where the TPU programs held a 256-row tile and its whole fc1
 // output in VMEM, these are chains of launches on one stream, with the
 // intermediates in device memory, on the one int8 GEMM of
-// int8_common.cuh (wgmma s8 with a TMA ring, epilogues in registers):
+// int8_common.cuh: a persistent grid of 2-CTA clusters walking 256 x 128
+// tiles, the weight tile multicast to both CTAs through a TMA ring that
+// runs on across tiles, and in each CTA two math groups of two wgmma s8
+// warpgroups in ping-pong: one group's epilogue, in registers, runs while
+// the other's products run.  The GELU passes' epilogue (tanhf; the
+// quantize pass's IEEE division) takes longer than their products and sets
+// their pace, with every math warp of the SM on it; fc2's is hidden
+// behind its products.
 //   C, H  1. (LN +) per-row quantize      (m, d)   -> int8 (m, d), scale (m);
 //            also zeroes the (m,) row-amax buffer
 //         2. fc1, amax pass: epilogue gelu, max |gelu| of each row of its
